@@ -1,0 +1,41 @@
+"""Controller constants used by the port.
+
+The port's own copy of the values in the JAX package's ``config/params.py``
+(itself a mirror of the reference's A1Params.h); only the constants the
+ported modules read are kept.
+"""
+
+# --- MPC problem dimensions (A1Params.h:26-28) ---------------------------
+PLAN_HORIZON = 10               # MPC lookahead steps
+MPC_STATE_DIM = 13              # (rpy, pos, omega, vel, gravity)
+MPC_CONSTRAINT_DIM = 20         # 5 friction-pyramid rows per leg
+
+# --- robot dimensions (A1Params.h:31-36) ---------------------------------
+NUM_LEG = 4
+NUM_DOF = 12
+
+# --- contact detection force threshold (N) (A1Params.h:38) ---------------
+FOOT_FORCE_LOW = 30.0
+
+# --- swing clearances (m) (A1Params.h:41-42) -----------------------------
+FOOT_SWING_CLEARANCE1 = 0.0
+FOOT_SWING_CLEARANCE2 = 0.4
+
+# --- Raibert foothold delta clamp (m) (A1Params.h:44-45) -----------------
+FOOT_DELTA_X_LIMIT = 0.1
+FOOT_DELTA_Y_LIMIT = 0.1
+
+# --- MPC QP constants (ConvexMpc.cpp:8, :223-224) ------------------------
+MPC_MU = 0.3                    # friction coefficient
+MPC_FZ_MIN = 0.0                # N, per-leg normal force lower bound
+MPC_FZ_MAX = 180.0              # N, per-leg normal force upper bound
+
+# --- loop cadence and MPC step (A1Params.h:10-12, A1RobotControl.cpp:458) -
+MAIN_UPDATE_PERIOD_MS = 0.5
+HARDWARE_MPC_DT = 0.0025
+
+# --- derived QP sizes -----------------------------------------------------
+MPC_NV = NUM_DOF * PLAN_HORIZON             # 120 decision variables
+MPC_NC = MPC_CONSTRAINT_DIM * PLAN_HORIZON  # 200 constraint rows
+GRAVITY = 9.8                               # dynamics / Raibert / plant
+EKF_GRAVITY = 9.81                          # EKF input gravity (A1BasicEKF.cpp:76)

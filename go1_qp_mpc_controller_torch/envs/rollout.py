@@ -1,0 +1,128 @@
+"""Closed-loop batched rollout: controller + SRB plant, one tick at a time.
+
+Port of the JAX package's ``envs/rollout.py`` main path (``init_carry``,
+``rollout_batched``). One loop step is one control tick: read sensors,
+observe + EKF (kernel K2), plan, swing, the routed MPC GRF solve (kernel
+K1), torques, then one plant step. The JAX ``lax.scan`` becomes a Python
+loop.
+"""
+
+from typing import NamedTuple
+
+import torch
+
+from go1_qp_mpc_controller_torch.ctrl import controller
+from go1_qp_mpc_controller_torch.envs import srb_sim
+from go1_qp_mpc_controller_torch.models import types
+from go1_qp_mpc_controller_torch.ops import admm, ekf
+from go1_qp_mpc_controller_torch.utils.device import resolve_device
+
+
+class RolloutCarry(NamedTuple):
+    ctrl: types.CtrlState
+    sim: srb_sim.SimState
+    stance_forces_z: torch.Tensor  # (B, 4) last applied normal forces
+
+
+class RolloutTrace(NamedTuple):
+    """Per-tick records, each (T, B, ...)."""
+    root_pos: torch.Tensor
+    root_euler: torch.Tensor
+    root_lin_vel: torch.Tensor
+    joint_torques: torch.Tensor
+    foot_forces_grf: torch.Tensor
+    contacts: torch.Tensor
+    est_root_pos: torch.Tensor
+    terrain_pitch: torch.Tensor
+    foot_pos_abs: torch.Tensor
+
+
+def init_carry(model, params, batch, height=0.3, movement_mode=0,
+               dtype=torch.float32, device=None, ground_coef=None):
+    """Standing start for ``batch`` scenarios: the plant at ``height`` and
+    the controller state synced to it.
+
+    ``device=None`` places the carry on the CUDA card and raises when there
+    is none; ``model`` must live on the same device.
+    """
+    device = resolve_device(device)
+    if model.mass.device != device or model.mass.dtype != dtype:
+        raise ValueError(f"the model lives on {model.mass.device} / "
+                         f"{model.mass.dtype}, the carry on {device} / "
+                         f"{dtype}")
+    sim = srb_sim.init_sim_state(model, batch, height, ground_coef)
+    ctrl = types.init_ctrl_state(model, batch, dtype, device)
+    feet_body = sim.foot_pos_world - sim.root_pos[:, None]
+    ekf_x, ekf_p = ekf.init_state(sim.root_rot, feet_body)
+    ctrl = ctrl._replace(
+        movement_mode=torch.full((batch,), movement_mode, dtype=torch.int32,
+                                 device=device),
+        root_pos=sim.root_pos.clone(),
+        root_pos_d=sim.root_pos.clone(),
+        foot_pos_start=feet_body,
+        foot_pos_rel_last_time=feet_body,
+        foot_pos_target_last_time=feet_body,
+        foot_pos_recent_contact=feet_body,
+        estimator_x=ekf_x,
+        estimator_P=ekf_p)
+    weight = model.mass * 9.8 / 4.0
+    return RolloutCarry(ctrl=ctrl, sim=sim,
+                        stance_forces_z=weight.expand(batch, 4).clone())
+
+
+def rollout_batched(carry, model, params, num_steps, dt,
+                    settings=admm.ADMMSettings(), command_fn=None,
+                    estimate=True, use_terrain_adapt=True,
+                    ground_coef=None,
+                    warm_settings=controller.WARM_SETTINGS,
+                    robust=False, compact_k=128, stats=None):
+    """Run ``num_steps`` closed-loop ticks over a batched carry.
+
+    Args:
+      carry: RolloutCarry from :func:`init_carry`.
+      dt: control / plant period (the reference's 2 ms loop), a float.
+      settings: cold transition-solve settings (polish=False).
+      command_fn: optional (step_idx, ctrl_state) -> ctrl_state applied to
+        the batched controller state before each tick.
+      estimate: True runs the EKF (kernel K2) in the loop; False feeds the
+        plant's ground truth.
+      stats: optional dict counting the GRF route of each tick.
+
+    Returns:
+      (carry, RolloutTrace) with trace leaves (T, B, ...).
+    """
+    dt = float(dt)
+    records = []
+    for step_idx in range(num_steps):
+        ctrl, sim = carry.ctrl, carry.sim
+        if command_fn is not None:
+            ctrl = command_fn(step_idx, ctrl)
+        sensors = srb_sim.read_sensors(sim, model, ctrl.contacts,
+                                       carry.stance_forces_z, dt)
+        ctrl = controller.sensor_update(ctrl, model, sensors, dt,
+                                        estimate=estimate)
+        if not estimate:
+            ctrl = ctrl._replace(root_pos=sim.root_pos,
+                                 root_lin_vel=sim.root_lin_vel)
+        ctrl = controller.control_step_batched(
+            ctrl, model, params, dt, settings=settings,
+            use_terrain_adapt=use_terrain_adapt,
+            warm_settings=warm_settings, robust=robust,
+            compact_k=compact_k, stats=stats)
+        sim_new, forces_z = srb_sim.step(
+            sim, model, ctrl.joint_torques, ctrl.contacts,
+            ctrl.foot_pos_target_last_time, dt, ground_coef=ground_coef)
+        records.append(RolloutTrace(
+            root_pos=sim_new.root_pos, root_euler=ctrl.root_euler,
+            root_lin_vel=sim_new.root_lin_vel,
+            joint_torques=ctrl.joint_torques,
+            foot_forces_grf=ctrl.foot_forces_grf, contacts=ctrl.contacts,
+            est_root_pos=ctrl.root_pos,
+            terrain_pitch=ctrl.terrain_pitch_angle,
+            foot_pos_abs=ctrl.foot_pos_abs))
+        carry = RolloutCarry(ctrl=ctrl, sim=sim_new,
+                             stance_forces_z=forces_z)
+    if not records:
+        raise ValueError("rollout_batched needs num_steps >= 1")
+    trace = RolloutTrace(*[torch.stack(leaves) for leaves in zip(*records)])
+    return carry, trace

@@ -1,0 +1,159 @@
+"""18-state / 28-measurement Kalman-filter state estimator.
+
+Port of the JAX package's ``ops/ekf.py`` (A1BasicEKF.cpp:7-164), batch
+first. State x = (root pos 3, root vel 3, foot positions 4x3); measurements
+are the 4 body->foot FK vectors, 4 leg-odometry velocities and 4 foot
+heights, with contact-weighted noise inflation (x1001 for swing legs). The
+innovation matrix is inverted by the scaled Newton-Schulz schedule at
+``_scaled_schulz_coeffs(1e-5)`` and the covariance takes the Joseph form.
+
+This is the plain version of the EKF half of kernel K2
+(``ops/observe_ekf.py``).
+"""
+
+import functools
+
+import numpy as np
+import torch
+
+from go1_qp_mpc_controller_torch.config.params import EKF_GRAVITY
+from go1_qp_mpc_controller_torch.ops import admm
+from go1_qp_mpc_controller_torch.utils import rotations
+from go1_qp_mpc_controller_torch.utils.device import const
+
+STATE_SIZE = 18
+MEAS_SIZE = 28
+# noise constants (A1BasicEKF.h:16-21)
+PROCESS_NOISE_PIMU = 0.01
+PROCESS_NOISE_VIMU = 0.01
+PROCESS_NOISE_PFOOT = 0.01
+SENSOR_NOISE_PIMU_REL_FOOT = 0.001
+SENSOR_NOISE_VIMU_REL_FOOT = 0.1
+SENSOR_NOISE_ZFOOT = 0.001
+# lower spectral edge of the innovation inverse's Schulz schedule: the
+# balanced innovation matrix has cond ~1.3e3 on the controller presets
+SINV_L0 = 1e-5
+
+
+def _measurement_matrix():
+    """Fixed C (A1BasicEKF.cpp:11-17) as float64 numpy."""
+    c = np.zeros((MEAS_SIZE, STATE_SIZE))
+    for i in range(4):
+        c[3 * i:3 * i + 3, 0:3] = -np.eye(3)
+        c[3 * i:3 * i + 3, 6 + 3 * i:9 + 3 * i] = np.eye(3)
+        c[12 + 3 * i:15 + 3 * i, 3:6] = np.eye(3)
+        c[24 + i, 6 + 3 * i + 2] = 1.0
+    return c
+
+
+_C = _measurement_matrix()
+
+
+@functools.lru_cache(maxsize=None)
+def _c_on(dtype, device):
+    return torch.as_tensor(_C).to(device=device, dtype=dtype)
+
+
+def init_state(root_rot_mat, foot_pos_rel):
+    """Initial (x (B, 18), P (B, 18, 18)) (A1BasicEKF.cpp:55-68).
+
+    Args:
+      root_rot_mat: (B, 3, 3).
+      foot_pos_rel: (B, 4, 3) body-frame FK foot positions.
+    """
+    dtype, device = foot_pos_rel.dtype, foot_pos_rel.device
+    batch = foot_pos_rel.shape[0]
+    root = torch.tensor([0.0, 0.0, 0.09], dtype=dtype, device=device)
+    feet_world = foot_pos_rel @ root_rot_mat.transpose(-1, -2) + root
+    x = torch.cat([root.expand(batch, 3),
+                   torch.zeros((batch, 3), dtype=dtype, device=device),
+                   feet_world.reshape(batch, 12)], dim=-1)
+    p = 3.0 * torch.eye(STATE_SIZE, dtype=dtype, device=device)
+    return x, p.expand(batch, STATE_SIZE, STATE_SIZE).clone()
+
+
+def update_estimation(x, P, dt, root_rot_mat, imu_acc, imu_ang_vel,
+                      foot_pos_rel, foot_vel_rel, foot_force, movement_mode,
+                      assume_flat_ground=True, contact_force_norm=100.0):
+    """One KF predict + update tick (A1BasicEKF.cpp:70-164), batch first.
+
+    Args:
+      x: (B, 18); P: (B, 18, 18); dt: step length (float).
+      root_rot_mat: (B, 3, 3); imu_acc, imu_ang_vel: (B, 3).
+      foot_pos_rel, foot_vel_rel: (B, 4, 3) body-frame FK.
+      foot_force: (B, 4); movement_mode: (B,) int, 0 = stand.
+      contact_force_norm: full-contact force scale (100 for A1 units).
+
+    Returns:
+      (x (B, 18), P (B, 18, 18), est_contacts (B, 4) in [0, 1]).
+    """
+    dtype, device = x.dtype, x.device
+    batch = x.shape[0]
+    c_mat = _c_on(dtype, device)
+    eye18 = torch.eye(STATE_SIZE, dtype=dtype, device=device)
+
+    # contact estimate (A1BasicEKF.cpp:79-86)
+    contacts_walk = torch.clamp(foot_force / contact_force_norm, 0.0, 1.0)
+    est_c = torch.where((movement_mode == 0)[:, None],
+                        torch.ones_like(contacts_walk), contacts_walk)
+    infl = 1.0 + (1.0 - est_c) * 1e3            # (B, 4)
+    rep3 = lambda a: a.repeat_interleave(3, dim=-1)
+
+    # process model (A1BasicEKF.cpp:72-95)
+    a_mat = eye18.clone()
+    a_mat[0:3, 3:6] = dt * torch.eye(3, dtype=dtype, device=device)
+    u = ((root_rot_mat @ imu_acc[..., None])[..., 0]
+         + const((0.0, 0.0, -EKF_GRAVITY), dtype, device))
+    q_diag = torch.cat([
+        torch.full((batch, 3), PROCESS_NOISE_PIMU * dt / 20.0, dtype=dtype,
+                   device=device),
+        torch.full((batch, 3), PROCESS_NOISE_VIMU * dt * 9.8 / 20.0,
+                   dtype=dtype, device=device),
+        rep3(infl * dt * PROCESS_NOISE_PFOOT)], dim=-1)
+
+    # measurement noise (A1BasicEKF.cpp:27-31, 49-53, 98-106)
+    r_z = (infl * SENSOR_NOISE_ZFOOT if assume_flat_ground
+           else torch.full_like(infl, 1e5))
+    r_diag = torch.cat([rep3(infl * SENSOR_NOISE_PIMU_REL_FOOT),
+                        rep3(infl * SENSOR_NOISE_VIMU_REL_FOOT), r_z], dim=-1)
+
+    # predict (A1BasicEKF.cpp:110-112); B u feeds the velocity rows only
+    xbar = x @ a_mat.T
+    xbar = torch.cat([xbar[:, 0:3], xbar[:, 3:6] + dt * u, xbar[:, 6:]],
+                     dim=-1)
+    pbar = a_mat @ P @ a_mat.T + torch.diag_embed(q_diag)
+
+    # measurements (A1BasicEKF.cpp:115-128)
+    rot_t = root_rot_mat.transpose(-1, -2)
+    fk_world = foot_pos_rel @ rot_t                              # (B, 4, 3)
+    omega_skew = rotations.skew(imu_ang_vel)
+    leg_v = -foot_vel_rel - foot_pos_rel @ omega_skew.transpose(-1, -2)
+    vel_meas = ((1.0 - est_c)[..., None] * x[:, None, 3:6]
+                + est_c[..., None] * (leg_v @ rot_t))
+    height_meas = (1.0 - est_c) * (x[:, 2:3] + foot_pos_rel[..., 2])
+    y = torch.cat([fk_world.reshape(batch, 12), vel_meas.reshape(batch, 12),
+                   height_meas], dim=-1)
+    yhat = xbar @ c_mat.T
+
+    # innovation inverse by the scaled Newton-Schulz schedule
+    s_mat = c_mat @ pbar @ c_mat.T + torch.diag_embed(r_diag)
+    s_mat = 0.5 * (s_mat + s_mat.transpose(-1, -2))
+    err = y - yhat
+    sinv = admm._schulz_inverse(
+        s_mat, 0, coeffs=admm._scaled_schulz_coeffs(SINV_L0))
+    k_gain = pbar @ c_mat.T @ sinv                               # (B, 18, 28)
+    x_new = xbar + (k_gain @ err[..., None])[..., 0]
+    # Joseph form: PSD for any gain, robust to the Schulz residual
+    ikc = eye18 - k_gain @ c_mat
+    p_new = (ikc @ pbar @ ikc.transpose(-1, -2)
+             + k_gain @ torch.diag_embed(r_diag) @ k_gain.transpose(-1, -2))
+    p_new = 0.5 * (p_new + p_new.transpose(-1, -2))
+
+    # xy-position covariance surgery (A1BasicEKF.cpp:143-147), branchless
+    det2 = p_new[:, 0, 0] * p_new[:, 1, 1] - p_new[:, 0, 1] * p_new[:, 1, 0]
+    mask = torch.ones((STATE_SIZE, STATE_SIZE), dtype=dtype, device=device)
+    mask[0:2, 2:] = 0.0
+    mask[2:, 0:2] = 0.0
+    mask[0:2, 0:2] = 0.1
+    p_new = torch.where((det2 > 1e-6)[:, None, None], p_new * mask, p_new)
+    return x_new, p_new, est_c

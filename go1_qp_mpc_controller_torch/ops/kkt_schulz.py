@@ -1,0 +1,193 @@
+"""K1: fused KKT build + Newton-Schulz inverse, per scenario.
+
+Port of the JAX package's Pallas kernel
+``ops/pallas_admm.py::schulz_inverse_kkt_batch`` (``_kkt_build_tile`` +
+``_schulz_batch_body``). For each scenario it
+
+1. builds M = cost H + sigma I + C' diag(rho) C from the lazy Gram
+   quadrants (``srb.LazyCondensedQP.tiled``) times the constant
+   ``srb._NILP_COEFFS_E`` plus the three band diagonals,
+2. Jacobi-balances M (M_b = S M S, S = diag(M)^-1/2),
+3. with a warm start X0, runs the basin test on M_b X0_b (min diagonal
+   > 1e-4 and max absolute row sum < 3): a passing scenario takes a plain
+   Newton step from X0, a failing one the scaled cold step,
+4. runs the rest of the coefficient schedule
+   (``admm._scaled_schulz_coeffs``; scaled steps apply only to scenarios
+   that did not accept their warm start),
+5. returns the unbalanced inverse S X S.
+
+``kkt_schulz`` is the entry point: a CUDA float32 input launches the
+hand-written Hopper kernel ``csrc/kkt_schulz.cu``; a CPU input takes the
+plain PyTorch version ``kkt_schulz_plain`` below (any dtype). Any other
+input raises.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from go1_qp_mpc_controller_torch.models import srb
+from go1_qp_mpc_controller_torch.ops import _build
+
+N = srb.H * srb.NU          # 120
+MAX_COEFFS = 64             # schedule capacity of the CUDA kernel
+
+# launches of the CUDA kernel since the last reset (CPU calls do not count)
+launches = 0
+
+
+def reset_launches():
+    global launches
+    launches = 0
+
+
+def kkt_build_plain(tiled, dmain, off1, off2, cost):
+    """Materialized (B, n, n) M = cost H + band (the kernel's build step).
+
+    Args:
+      tiled: (B, 4, 12, n) lazy Gram quadrants.
+      dmain, off1, off2: (B, n) band diagonals; dmain holds everything of
+        M's diagonal except H's own (cost r_diag + sigma + band main).
+      cost: (B,) cost normalization 1 / max diag H.
+    """
+    batch, n = tiled.shape[0], tiled.shape[-1]
+    coef = srb._const("coeffs_e", tiled)                   # (4, H, n)
+    acc = coef[0][None, :, None, :] * tiled[:, 0][:, None]
+    for k in range(1, 4):
+        acc = acc + coef[k][None, :, None, :] * tiled[:, k][:, None]
+    band = (torch.diag_embed(dmain)
+            + torch.diag_embed(off1[:, :-1], 1)
+            + torch.diag_embed(off1[:, :-1], -1)
+            + torch.diag_embed(off2[:, :-2], 2)
+            + torch.diag_embed(off2[:, :-2], -2))
+    return cost[:, None, None] * acc.reshape(batch, n, n) + band
+
+
+def schulz_balanced_core(mb, x0b=None, coeffs=(1.0,)):
+    """Basin-safeguarded (scaled) Newton-Schulz on already-balanced
+    (B, n, n) matrices; returns the BALANCED inverse (the kernel's
+    Schulz step, ``_schulz_batch_body`` between balance and unbalance).
+
+    Args:
+      mb: (B, n, n) Jacobi-balanced matrices.
+      x0b: optional (B, n, n) balanced warm inverses.
+      coeffs: per-step schedule (1.0 = plain Newton step), at least one.
+    """
+    if not coeffs:
+        raise ValueError("the Schulz schedule needs at least one step")
+    n = mb.shape[-1]
+    eye = torch.eye(n, dtype=mb.dtype, device=mb.device)
+    eye2 = 2.0 * eye
+    norminf = torch.amax(torch.sum(torch.abs(mb), dim=-1), dim=-1)
+    c = (1.0 / (1.05 * norminf))[:, None, None]
+    start = 0
+    ok = None
+    if x0b is not None:
+        inner = mb @ x0b
+        row_inner = torch.sum(torch.abs(inner), dim=-1)
+        d = torch.diagonal(inner, dim1=-2, dim2=-1)
+        # amin/amax propagate NaN like jnp.min/max: a NaN scenario fails
+        ok = ((torch.amin(d, dim=-1) > 1e-4)
+              & (torch.amax(row_inner, dim=-1) < 3.0))[:, None, None]
+        stepped = x0b @ (eye2 - inner)
+        ac = coeffs[0] * c
+        stepped_cold = ac * (eye2 - ac * mb)
+        x = torch.where(ok, stepped, stepped_cold)
+        start = 1
+    elif coeffs[0] != 1.0:
+        # the scaled first step from the scalar cold init, folded
+        ac = coeffs[0] * c
+        x = ac * (eye2 - ac * mb)
+        start = 1
+    else:
+        x = c * eye
+    for k in range(start, len(coeffs)):
+        a = coeffs[k]
+        inner = mb @ x
+        if a == 1.0:
+            x = x @ (eye2 - inner)
+        else:
+            # scaled step X <- a X (2I - a M X); warm-accepted scenarios
+            # run plain Newton (a = 1)
+            aa = (a if ok is None
+                  else torch.where(ok, 1.0, a).to(mb.dtype))
+            x = x @ ((2.0 * aa) * eye - (aa * aa) * inner)
+    return x
+
+
+def schulz_balanced_plain(m, x0=None, coeffs=(1.0,)):
+    """Balance + :func:`schulz_balanced_core` + unbalance on (B, n, n)
+    UNBALANCED SPD matrices with optional unbalanced warm inverses."""
+    s = torch.rsqrt(torch.diagonal(m, dim1=-2, dim2=-1))
+    unb = s[:, :, None] * s[:, None, :]
+    x0b = None if x0 is None else x0 / unb
+    return schulz_balanced_core(m * unb, x0b, coeffs) * unb
+
+
+def kkt_schulz_plain(tiled, dmain, off1, off2, cost, x0=None,
+                     coeffs=(1.0,)):
+    """Plain PyTorch version of K1 (same signature as :func:`kkt_schulz`)."""
+    m = kkt_build_plain(tiled, dmain, off1, off2, cost)
+    return schulz_balanced_plain(m, x0, coeffs)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("kkt_schulz")
+    ptr = ctypes.c_void_p
+    lib.kkt_schulz_launch.argtypes = [ptr] * 8 + [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ptr]
+    lib.kkt_schulz_launch.restype = ctypes.c_int
+    return lib
+
+
+def check_cuda_f32(kernel, name, t, shape):
+    """Raise unless ``t`` is a contiguous float32 CUDA tensor of ``shape``."""
+    if t.device.type != "cuda" or t.dtype != torch.float32:
+        raise TypeError(f"{kernel}: {name} must be a float32 CUDA tensor, "
+                        f"got {t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def kkt_schulz(tiled, dmain, off1, off2, cost, x0=None, coeffs=(1.0,)):
+    """K1 entry point: (B, n, n) unbalanced inverses of
+    cost H + sigma I + C' diag(rho) C (see the module docstring).
+
+    Args:
+      tiled: (B, 4, 12, 120); dmain, off1, off2: (B, 120); cost: (B,).
+      x0: optional (B, 120, 120) unbalanced warm inverses.
+      coeffs: the step schedule (1 to 64 steps).
+    """
+    if tiled.device.type == "cpu":
+        return kkt_schulz_plain(tiled, dmain, off1, off2, cost, x0, coeffs)
+    batch = tiled.shape[0]
+    check_cuda_f32("kkt_schulz", "tiled", tiled, (batch, 4, srb.NU, N))
+    for name, t in (("dmain", dmain), ("off1", off1), ("off2", off2)):
+        check_cuda_f32("kkt_schulz", name, t, (batch, N))
+    check_cuda_f32("kkt_schulz", "cost", cost, (batch,))
+    if x0 is not None:
+        check_cuda_f32("kkt_schulz", "x0", x0, (batch, N, N))
+    if not 0 < len(coeffs) <= MAX_COEFFS:
+        raise ValueError(f"kkt_schulz: schedule of {len(coeffs)} steps; "
+                         f"1..{MAX_COEFFS} supported")
+    out = torch.empty((batch, N, N), dtype=torch.float32,
+                      device=tiled.device)
+    if batch == 0:
+        return out
+    sched = (ctypes.c_float * len(coeffs))(*coeffs)
+    rc = _lib().kkt_schulz_launch(
+        tiled.data_ptr(), dmain.data_ptr(), off1.data_ptr(),
+        off2.data_ptr(), cost.data_ptr(), srb._const("coeffs_e", tiled).data_ptr(),
+        None if x0 is None else x0.data_ptr(), out.data_ptr(),
+        sched, len(coeffs), batch,
+        torch.cuda.current_stream(tiled.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kkt_schulz: CUDA launch failed with error {rc}")
+    global launches
+    launches += 1
+    return out
