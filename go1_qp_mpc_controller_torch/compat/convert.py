@@ -2,9 +2,11 @@
 
 ``from_numpy`` builds one of the port's ``NamedTuple`` containers (nested
 ones included, e.g. the ``MovingWindowState`` filters inside a
-``CtrlState``) from a mapping of arrays — for instance the JAX package's
-state after ``jax.tree.map(np.asarray, x)._asdict()``, which keeps the
-same field names. ``to_numpy`` goes the other way, to nested dicts of
+``CtrlState``) from a mapping or NamedTuple of arrays — for instance the
+JAX package's state after ``jax.tree.map(np.asarray, x)``, which keeps
+the same field names: a ``CtrlState``, or the solver's ``CondensedQP``,
+``WarmState`` and ``BalanceQP`` (batched: a leading batch axis on every
+leaf). ``to_numpy`` goes the other way, to nested dicts of
 arrays, so that another implementation can compute on the same state.
 """
 

@@ -39,3 +39,10 @@ MPC_NV = NUM_DOF * PLAN_HORIZON             # 120 decision variables
 MPC_NC = MPC_CONSTRAINT_DIM * PLAN_HORIZON  # 200 constraint rows
 GRAVITY = 9.8                               # dynamics / Raibert / plant
 EKF_GRAVITY = 9.81                          # EKF input gravity (A1BasicEKF.cpp:76)
+
+# --- balance-QP constants (A1RobotControl.cpp:28-48, :393-413) ------------
+QP_MU = 0.7
+QP_F_MIN = 0.0
+QP_F_MAX = 180.0
+QP_R_WEIGHT = 1e-3
+QP_Q_WEIGHTS = (1.0, 1.0, 1.0, 400.0, 400.0, 100.0)

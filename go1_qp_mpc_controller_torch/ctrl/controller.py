@@ -1,19 +1,29 @@
-"""The batched controller tick: sensors -> estimation -> plan -> GRF -> torques.
+"""The controller tick: sensors -> estimation -> plan -> GRF -> torques.
 
-Port of the main path of the JAX package's ``ctrl/controller.py``:
-:func:`sensor_update` runs the observe + EKF stage (kernel K2 on CUDA),
-:func:`control_step_batched` chains plan -> swing -> MPC GRF solve ->
-torques, and :func:`compute_grf_mpc_batched` routes the GRF solve three
-ways over the whole batch (warm / compacted cold sub-batch / whole-batch
-cold), every solve program reaching kernel K1 through ``ops/admm.py``.
+Port of the JAX package's ``ctrl/controller.py``. Every function takes a
+batch of scenarios (a leading axis ``B`` on every ``CtrlState`` leaf):
 
-The JAX package routes with ``lax.cond`` on device predicates; here the
-routing is host branching, so a tick waits on the device at most twice:
-once for (sum(transition), any(window)) before the base program and once
-for the flag count after it (see :func:`compute_grf_mpc_batched`).
+- :func:`sensor_update` runs the observe + EKF stage (kernel K2 on CUDA);
+- :func:`control_step_batched` chains plan -> swing -> MPC GRF solve ->
+  torques, with :func:`compute_grf_mpc_batched` routing the GRF solve
+  three ways over the whole batch (warm / compacted cold sub-batch /
+  whole-batch cold);
+- :func:`control_step` is the per-scenario tick (the JAX package's
+  ``control_step`` under vmap): MPC (:func:`compute_grf_mpc`, each
+  scenario routed warm / window / cold on its own) or the balance QP
+  (:func:`compute_grf_qp`).
 
-The per-scenario ``control_step`` / ``compute_grf_mpc`` and the dense
-polished cold solve are not ported yet (ROADMAP queue 1, item 10).
+The lazy-factor solve programs reach kernel K1; the dense polished cold
+solve and the balance QP reach K3, through ``ops/admm.py``.
+
+The JAX package routes with ``lax.cond`` / ``lax.switch`` on device
+predicates; here the routing is host branching, so a tick waits on the
+device at most twice (see :func:`compute_grf_mpc_batched` and
+:func:`compute_grf_mpc`).
+
+Not ported yet (ROADMAP queue 1, item 12): the receding-horizon
+condensation and the stagewise solver for a horizon other than 10; both
+raise ``NotImplementedError``.
 """
 
 from typing import NamedTuple
@@ -23,7 +33,7 @@ import torch
 from go1_qp_mpc_controller_torch.config import params as P
 from go1_qp_mpc_controller_torch.ctrl import gait, swing, terrain, torque
 from go1_qp_mpc_controller_torch.models import kinematics, srb
-from go1_qp_mpc_controller_torch.ops import admm, observe_ekf
+from go1_qp_mpc_controller_torch.ops import admm, observe_ekf, qp
 from go1_qp_mpc_controller_torch.utils import rotations
 from go1_qp_mpc_controller_torch.utils.device import pin_f32_matmuls
 
@@ -50,6 +60,10 @@ WINDOW_WARM_SETTINGS = admm.ADMMSettings(seg_iters=80, segments=1,
 WARM_PREFLIP_TICKS = 2.0
 _WARM_HEALTH_PRIM_REL = 8e-4
 _WARM_HEALTH_DUAL_REL = 0.15
+
+MPC = 1   # stance_leg_control_type values (A1CtrlStates.h:330)
+QP = 0
+_LATER = "not ported yet (ROADMAP queue 1, item 12)"
 
 
 class SensorData(NamedTuple):
@@ -194,12 +208,18 @@ def _grf_branches(settings, warm_settings, window_settings=None):
         rho_max=min(settings.rho_max, WARM_RHO_MAX))
 
     def cold_branch(lz, warm):
-        if settings_t.polish or settings_t.refine_f64:
-            raise NotImplementedError(
-                "the polished / refine_f64 cold solve needs the dense "
-                "admm.mpc_solve, which is not ported yet (ROADMAP queue 1, "
-                "item 10); pass settings with polish=False")
-        sol, w = admm.solve_segmented_fused(lz, settings_t, P.MPC_MU, warm)
+        if not settings_t.polish and not settings_t.refine_f64:
+            # segmented transition solve on the lazy factors (K1)
+            sol, w = admm.solve_segmented_fused(lz, settings_t, P.MPC_MU,
+                                                warm)
+        else:
+            # polish needs the materialized Hessian: the dense solve (K3)
+            dense = srb.CondensedQP(hessian=srb.lazy_hessian(lz),
+                                    gradient=lz.gradient, lb=lz.lb,
+                                    ub=lz.ub)
+            sol, w = admm.mpc_solve(dense, settings_t, warm_x=warm.x,
+                                    warm_y=warm.y, warm_rho=warm.rho,
+                                    return_warm=True)
         return sol.x, w, torch.zeros_like(sol.rho, dtype=torch.bool)
 
     def warm_branch(lz, warm):
@@ -217,9 +237,154 @@ def _take(tree, idx):
     return type(tree)(*[a[idx] for a in tree])
 
 
-def _count(stats, route):
+def _condensed(states, model, params, use_terrain_adapt):
+    """Terrain adaptation, then the lazy horizon-10 condensed QP of every
+    scenario (constant foot positions over the horizon, swing feet at
+    their planned footholds: solution-neutral, and it keeps the KKT
+    nearly constant between transitions). Returns (states, lazy)."""
+    states = terrain.terrain_adaptation(states, use_terrain_adapt)
+    x0 = srb.mpc_state(states.root_euler, states.root_pos,
+                       states.root_ang_vel, states.root_lin_vel)
+    vel_d_world = (states.root_rot_mat
+                   @ states.root_lin_vel_d[..., None])[..., 0]
+    x_ref = srb.reference_trajectory(
+        states.root_pos, states.root_euler, states.root_pos_d,
+        states.root_euler_d, states.root_ang_vel_d, vel_d_world,
+        params.mpc_dt)
+    a_c = srb.calculate_A_c(states.root_euler)
+    foot_pos_mpc = torch.where(states.contacts[..., None],
+                               states.foot_pos_abs,
+                               states.foot_pos_target_abs)
+    b_c = srb.calculate_B_c(model.mass, model.trunk_inertia,
+                            states.root_rot_mat, foot_pos_mpc)
+    a_d, b_d = srb.discretize(a_c, b_c, params.mpc_dt)
+    return states, srb.condense_nilpotent_lazy(
+        a_d, b_d, x0, x_ref, params.q_weights, params.r_weights,
+        states.contacts)
+
+
+def _scatter(full, idx, sub):
+    """``full`` with rows ``idx`` replaced by ``sub`` (a new tensor)."""
+    out = full.clone()
+    out[idx] = sub
+    return out
+
+
+def compute_grf_mpc(states, model, params, settings=admm.ADMMSettings(),
+                    use_terrain_adapt=True, warm_settings=WARM_SETTINGS,
+                    receding_horizon=False, warm_mode="auto",
+                    window_settings=None, stats=None):
+    """Horizon-10 condensed MPC solve with per-scenario routing (the JAX
+    package's ``compute_grf_mpc``; A1RobotControl.cpp:446-561).
+
+    The carried warm state takes the warm tick on the lazy factors; a
+    contact flip, a young carry, a gradient jump or the pre-flip / early
+    post-flip sub-windows take the cold ``settings`` solve (dense and
+    polished when ``settings.polish``); the rest of the post-flip window
+    takes the long warm segment. A warm or window result that fails the
+    residual health gate is re-solved cold from a neutral start.
+
+    Each scenario of the batch takes exactly the route it would take
+    alone: every route runs on the sub-batch that takes it (gathered, then
+    scattered back). The route vector reaches the host in one
+    device-to-host copy a tick, and the health flags in one more when a
+    warm or window sub-batch ran.
+
+    Args:
+      warm_settings: settings of the warm tick, or None to solve cold every
+        tick with ``settings`` (warm-started with primal / dual only).
+      warm_mode: "auto" (the routing above), "warm" (always the warm tick:
+        the caller owns the cadence) or "cold" (always the cold branch).
+      receding_horizon: not ported yet; raises NotImplementedError.
+      stats: optional dict; the scenarios of each route ("warm", "window",
+        "cold", and "health" for the cold re-solves) are counted into it.
+    """
+    if receding_horizon:
+        raise NotImplementedError(f"receding_horizon=True is {_LATER}")
+    states, lazy = _condensed(states, model, params, use_terrain_adapt)
+    batch = lazy.gradient.shape[0]
+
+    if warm_settings is None:
+        dense = srb.CondensedQP(hessian=srb.lazy_hessian(lazy),
+                                gradient=lazy.gradient, lb=lazy.lb,
+                                ub=lazy.ub)
+        sol = admm.mpc_solve(dense, settings, warm_x=states.qp_warm_x,
+                             warm_y=states.qp_warm_y)
+        _count(stats, "cold", batch)
+        warm_out = admm.WarmState(x=sol.x, y=sol.y, rho=states.qp_warm_rho,
+                                  minv=states.qp_warm_minv)
+        return _finish_grf(states, sol.x, warm_out, lazy.gradient)
+
+    warm_in, transition, window = _transition_test(states, lazy, params)
+    branches = dict(zip(("cold", "warm", "window"),
+                        _grf_branches(settings, warm_settings,
+                                      window_settings)))
+    if warm_mode in ("warm", "cold"):
+        x_sol, warm_out, _ = branches[warm_mode](lazy, warm_in)
+        _count(stats, warm_mode, batch)
+        return _finish_grf(states, x_sol, warm_out, lazy.gradient)
+    if warm_mode != "auto":
+        raise ValueError(f"unknown warm_mode {warm_mode!r}")
+
+    # 0 = warm, 1 = window, 2 = cold; device-to-host copy 1 of at most 2
+    route = torch.where(transition, 2, torch.where(window, 1, 0))
+    counts = torch.bincount(route, minlength=3).tolist()
+    x_sol = warm_out = bad = None
+    for code, name in enumerate(("warm", "window", "cold")):
+        if counts[code] == 0:
+            continue
+        _count(stats, name, counts[code])
+        if counts[code] == batch:
+            x_sol, warm_out, bad = branches[name](lazy, warm_in)
+            break
+        # the scenarios of this route first, in ascending order
+        idx = torch.sort((route != code).to(torch.int32),
+                         stable=True)[1][:counts[code]]
+        x_r, w_r, bad_r = branches[name](_take(lazy, idx),
+                                         _take(warm_in, idx))
+        if x_sol is None:
+            x_sol = torch.empty_like(lazy.gradient)
+            warm_out = admm.WarmState(*[torch.empty_like(a)
+                                        for a in warm_in])
+            bad = torch.zeros_like(transition)
+        x_sol[idx] = x_r
+        for full, sub in zip(warm_out, w_r):
+            full[idx] = sub
+        bad[idx] = bad_r
+
+    if counts[0] + counts[1] > 0:
+        n_bad = int(bad.sum())              # device-to-host copy 2
+        if n_bad:
+            # a health-rejected carry is garbage by construction: its
+            # cold re-solve starts neutral
+            _count(stats, "health", n_bad)
+            neutral = warm_in._replace(x=torch.zeros_like(warm_in.x),
+                                       y=torch.zeros_like(warm_in.y))
+            idx = torch.sort((~bad).to(torch.int32), stable=True)[1][:n_bad]
+            x_b, w_b, _ = branches["cold"](_take(lazy, idx),
+                                           _take(neutral, idx))
+            x_sol = _scatter(x_sol, idx, x_b)
+            warm_out = admm.WarmState(*[_scatter(a, idx, b)
+                                        for a, b in zip(warm_out, w_b)])
+    return _finish_grf(states, x_sol, warm_out, lazy.gradient)
+
+
+def compute_grf_qp(states, model, params, settings=admm.ADMMSettings()):
+    """Single-step balance QP per scenario (A1RobotControl.cpp:377-444),
+    solved cold by the dense ADMM (K3 at n = 12)."""
+    acc = qp.desired_root_acc(states, params, model.mass)
+    bqp = qp.build_balance_qp(acc, states.root_rot_mat_z,
+                              states.foot_pos_abs, states.contacts)
+    grf_world, _ = qp.solve_balance_qp(bqp, settings)
+    grf_body = grf_world @ states.root_rot_mat
+    bad = torch.isnan(torch.linalg.norm(grf_body, dim=-1, keepdim=True))
+    return states._replace(foot_forces_grf=torch.where(
+        bad, states.foot_forces_grf, grf_body))
+
+
+def _count(stats, route, n=1):
     if stats is not None:
-        stats[route] = stats.get(route, 0) + 1
+        stats[route] = stats.get(route, 0) + n
 
 
 def compute_grf_mpc_batched(states, model, params,
@@ -254,25 +419,7 @@ def compute_grf_mpc_batched(states, model, params,
     Returns:
       the updated batched CtrlState.
     """
-    states = terrain.terrain_adaptation(states, use_terrain_adapt)
-    x0 = srb.mpc_state(states.root_euler, states.root_pos,
-                       states.root_ang_vel, states.root_lin_vel)
-    vel_d_world = (states.root_rot_mat
-                   @ states.root_lin_vel_d[..., None])[..., 0]
-    x_ref = srb.reference_trajectory(
-        states.root_pos, states.root_euler, states.root_pos_d,
-        states.root_euler_d, states.root_ang_vel_d, vel_d_world,
-        params.mpc_dt)
-    a_c = srb.calculate_A_c(states.root_euler)
-    foot_pos_mpc = torch.where(states.contacts[..., None],
-                               states.foot_pos_abs,
-                               states.foot_pos_target_abs)
-    b_c = srb.calculate_B_c(model.mass, model.trunk_inertia,
-                            states.root_rot_mat, foot_pos_mpc)
-    a_d, b_d = srb.discretize(a_c, b_c, params.mpc_dt)
-    lazy = srb.condense_nilpotent_lazy(a_d, b_d, x0, x_ref,
-                                       params.q_weights, params.r_weights,
-                                       states.contacts)
+    states, lazy = _condensed(states, model, params, use_terrain_adapt)
     warm_in, transition, window = _transition_test(states, lazy, params)
 
     if robust:
@@ -381,8 +528,8 @@ def control_step_batched(states, model, params, dt,
     solve (:func:`compute_grf_mpc_batched`) -> torques.
 
     Pins true-float32 matmuls first (see ``utils/device.py``). ``settings``
-    are the cold transition-solve settings and must have polish=False
-    (the dense polished solve is not ported yet).
+    are the cold transition-solve settings: polished ones take the dense
+    solve (K3), the others the segmented lazy solve (K1).
     """
     pin_f32_matmuls()
     states = gait.update_plan(states, params, model)
@@ -391,4 +538,31 @@ def control_step_batched(states, model, params, dt,
                                      use_terrain_adapt, warm_settings,
                                      robust=robust, compact_k=compact_k,
                                      stats=stats)
+    return torque.compute_joint_torques(states, params)
+
+
+def control_step(states, model, params, dt, solver_type=MPC,
+                 settings=admm.ADMMSettings(), use_terrain_adapt=True,
+                 warm_settings=WARM_SETTINGS, receding_horizon=False,
+                 warm_mode="auto", horizon=None, stats=None):
+    """One full controller tick per scenario: plan -> swing -> GRF solve
+    (MPC with per-scenario routing, :func:`compute_grf_mpc`, or the
+    balance QP, :func:`compute_grf_qp`) -> torques. Each scenario of the
+    batch computes what the JAX package's ``control_step`` computes for
+    it alone. ``horizon`` other than PLAN_HORIZON (the stagewise solver)
+    is not ported yet and raises NotImplementedError."""
+    if horizon is not None and horizon != P.PLAN_HORIZON:
+        raise NotImplementedError(f"horizon={horizon} (the stagewise "
+                                  f"solver) is {_LATER}")
+    pin_f32_matmuls()
+    states = gait.update_plan(states, params, model)
+    states = swing.generate_swing_legs_ctrl(states, params, dt)
+    if solver_type == MPC:
+        states = compute_grf_mpc(states, model, params, settings,
+                                 use_terrain_adapt, warm_settings,
+                                 receding_horizon, warm_mode, stats=stats)
+    elif solver_type == QP:
+        states = compute_grf_qp(states, model, params, settings)
+    else:
+        raise ValueError(f"unknown solver_type {solver_type!r}")
     return torque.compute_joint_torques(states, params)

@@ -1,10 +1,17 @@
-"""Closed-loop batched rollout: controller + SRB plant, one tick at a time.
+"""Closed-loop rollouts: controller + SRB plant, one tick at a time.
 
-Port of the JAX package's ``envs/rollout.py`` main path (``init_carry``,
-``rollout_batched``). One loop step is one control tick: read sensors,
-observe + EKF (kernel K2), plan, swing, the routed MPC GRF solve (kernel
-K1), torques, then one plant step. The JAX ``lax.scan`` becomes a Python
-loop.
+Port of the JAX package's ``envs/rollout.py`` (``init_carry``,
+``rollout``, ``rollout_batched``). One loop step is one control tick:
+read sensors, observe + EKF (kernel K2), plan, swing, the GRF solve,
+torques, then one plant step. The JAX ``lax.scan`` becomes a Python loop.
+Both rollouts run B robots at once:
+
+- :func:`rollout_batched` routes the GRF solve over the whole batch
+  (``controller.control_step_batched``), the batched-sweep program;
+- :func:`rollout` gives each robot the per-scenario semantics of the JAX
+  ``rollout`` (``controller.control_step``): MPC or balance-QP stance
+  control, each scenario routed on its own. At batch 1 it is the
+  single-robot 500 Hz loop.
 """
 
 from typing import NamedTuple
@@ -70,27 +77,10 @@ def init_carry(model, params, batch, height=0.3, movement_mode=0,
                         stance_forces_z=weight.expand(batch, 4).clone())
 
 
-def rollout_batched(carry, model, params, num_steps, dt,
-                    settings=admm.ADMMSettings(), command_fn=None,
-                    estimate=True, use_terrain_adapt=True,
-                    ground_coef=None,
-                    warm_settings=controller.WARM_SETTINGS,
-                    robust=False, compact_k=128, stats=None):
-    """Run ``num_steps`` closed-loop ticks over a batched carry.
-
-    Args:
-      carry: RolloutCarry from :func:`init_carry`.
-      dt: control / plant period (the reference's 2 ms loop), a float.
-      settings: cold transition-solve settings (polish=False).
-      command_fn: optional (step_idx, ctrl_state) -> ctrl_state applied to
-        the batched controller state before each tick.
-      estimate: True runs the EKF (kernel K2) in the loop; False feeds the
-        plant's ground truth.
-      stats: optional dict counting the GRF route of each tick.
-
-    Returns:
-      (carry, RolloutTrace) with trace leaves (T, B, ...).
-    """
+def _run(carry, model, params, num_steps, dt, command_fn, estimate,
+         ground_coef, control):
+    """The closed loop: ``control(ctrl)`` is the controller tick after the
+    sensor update. Returns (carry, RolloutTrace), leaves (T, B, ...)."""
     dt = float(dt)
     records = []
     for step_idx in range(num_steps):
@@ -104,11 +94,7 @@ def rollout_batched(carry, model, params, num_steps, dt,
         if not estimate:
             ctrl = ctrl._replace(root_pos=sim.root_pos,
                                  root_lin_vel=sim.root_lin_vel)
-        ctrl = controller.control_step_batched(
-            ctrl, model, params, dt, settings=settings,
-            use_terrain_adapt=use_terrain_adapt,
-            warm_settings=warm_settings, robust=robust,
-            compact_k=compact_k, stats=stats)
+        ctrl = control(ctrl)
         sim_new, forces_z = srb_sim.step(
             sim, model, ctrl.joint_torques, ctrl.contacts,
             ctrl.foot_pos_target_last_time, dt, ground_coef=ground_coef)
@@ -123,6 +109,69 @@ def rollout_batched(carry, model, params, num_steps, dt,
         carry = RolloutCarry(ctrl=ctrl, sim=sim_new,
                              stance_forces_z=forces_z)
     if not records:
-        raise ValueError("rollout_batched needs num_steps >= 1")
+        raise ValueError("a rollout needs num_steps >= 1")
     trace = RolloutTrace(*[torch.stack(leaves) for leaves in zip(*records)])
     return carry, trace
+
+
+def rollout(carry, model, params, num_steps, dt,
+            solver_type=controller.MPC, settings=admm.ADMMSettings(),
+            command_fn=None, estimate=True, use_terrain_adapt=True,
+            ground_coef=None, warm_settings=controller.WARM_SETTINGS,
+            warm_mode="auto", horizon=None, stats=None):
+    """Run ``num_steps`` closed-loop ticks, each robot of the batch with
+    the per-scenario controller (``controller.control_step``).
+
+    Args:
+      carry: RolloutCarry from :func:`init_carry` (batch 1 for one robot).
+      dt: control / plant period (the reference's 2 ms loop), a float.
+      solver_type: ``controller.MPC`` or ``controller.QP``.
+      settings: the GRF solves' cold settings (the default polished
+        settings take the dense solve).
+      command_fn: optional (step_idx, ctrl_state) -> ctrl_state applied to
+        the batched controller state before each tick.
+      estimate: True runs the EKF (kernel K2) in the loop; False feeds the
+        plant's ground truth.
+      horizon: a horizon other than 10 (the stagewise solver) is not
+        ported yet and raises NotImplementedError.
+      stats: optional dict counting the scenarios of each GRF route.
+
+    Returns:
+      (carry, RolloutTrace) with trace leaves (T, B, ...).
+    """
+    return _run(carry, model, params, num_steps, dt, command_fn, estimate,
+                ground_coef, lambda ctrl: controller.control_step(
+                    ctrl, model, params, float(dt), solver_type=solver_type,
+                    settings=settings, use_terrain_adapt=use_terrain_adapt,
+                    warm_settings=warm_settings, warm_mode=warm_mode,
+                    horizon=horizon, stats=stats))
+
+
+def rollout_batched(carry, model, params, num_steps, dt,
+                    settings=admm.ADMMSettings(), command_fn=None,
+                    estimate=True, use_terrain_adapt=True,
+                    ground_coef=None,
+                    warm_settings=controller.WARM_SETTINGS,
+                    robust=False, compact_k=128, stats=None):
+    """Run ``num_steps`` closed-loop ticks over a batched carry with the
+    batch-level GRF routing (``controller.control_step_batched``).
+
+    Args:
+      carry: RolloutCarry from :func:`init_carry`.
+      dt: control / plant period (the reference's 2 ms loop), a float.
+      settings: cold transition-solve settings.
+      command_fn: optional (step_idx, ctrl_state) -> ctrl_state applied to
+        the batched controller state before each tick.
+      estimate: True runs the EKF (kernel K2) in the loop; False feeds the
+        plant's ground truth.
+      stats: optional dict counting the GRF route of each tick.
+
+    Returns:
+      (carry, RolloutTrace) with trace leaves (T, B, ...).
+    """
+    return _run(carry, model, params, num_steps, dt, command_fn, estimate,
+                ground_coef, lambda ctrl: controller.control_step_batched(
+                    ctrl, model, params, float(dt), settings=settings,
+                    use_terrain_adapt=use_terrain_adapt,
+                    warm_settings=warm_settings, robust=robust,
+                    compact_k=compact_k, stats=stats))

@@ -119,6 +119,20 @@ def _pyramid_bounds(contacts, fz_min, fz_max, dtype):
             ub_leg.reshape(lead + (-1,)).repeat((1,) * len(lead) + (H,)))
 
 
+class CondensedQP(NamedTuple):
+    """Batched dense condensed MPC QP: min 1/2 u'Pu + q'u s.t.
+    lb <= C u <= ub, with C the friction pyramid applied by
+    :func:`constraint_matvec` / :func:`constraint_rmatvec`.
+
+    Attributes:
+      hessian: (B, 120, 120); gradient: (B, 120); lb, ub: (B, 200).
+    """
+    hessian: torch.Tensor
+    gradient: torch.Tensor
+    lb: torch.Tensor
+    ub: torch.Tensor
+
+
 class LazyCondensedQP(NamedTuple):
     """Batched condensed MPC QP with the Hessian left factored:
     hessian = sum_k COEF[k] * tiled[k] (reshaped) + diag(r_diag), COEF
@@ -214,6 +228,17 @@ def condense_nilpotent_lazy(a_d, b_d, x0, x_ref, q_weights, r_weights,
     r_diag = (2.0 * r_weights).repeat(H).expand(batch, H * NU)
     return LazyCondensedQP(tiled=tiled, r_diag=r_diag, gradient=gradient,
                            lb=lb, ub=ub)
+
+
+def condense_nilpotent_const(a_d, b_d, x0, x_ref, q_weights, r_weights,
+                             contacts, fz_min=P.MPC_FZ_MIN,
+                             fz_max=P.MPC_FZ_MAX):
+    """:func:`condense_nilpotent_lazy` with the Hessian materialized: the
+    dense :class:`CondensedQP` the dense solver takes."""
+    lazy = condense_nilpotent_lazy(a_d, b_d, x0, x_ref, q_weights,
+                                   r_weights, contacts, fz_min, fz_max)
+    return CondensedQP(hessian=lazy_hessian(lazy), gradient=lazy.gradient,
+                       lb=lazy.lb, ub=lazy.ub)
 
 
 # --- friction-pyramid constraint operators --------------------------------

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, loaded with ``ctypes``. Libraries go to
-``build/kernels/`` at the repository root, named by a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-reused. ``build_all`` starts one ``nvcc`` per source at once and waits for
+``build/kernels/`` at the repository root, named by a hash of the source,
+the shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and an unchanged one is reused. ``build_all`` starts one ``nvcc`` per source at once and waits for
 all of them. Nothing here runs at import time.
 """
 
@@ -18,7 +18,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-KERNELS = ("kkt_schulz", "observe_ekf")
+KERNELS = ("kkt_schulz", "observe_ekf", "schulz_batch", "admm_iterations")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,8 +34,10 @@ def _nvcc():
 
 
 def library_path(name):
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

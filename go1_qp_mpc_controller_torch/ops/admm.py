@@ -1,18 +1,35 @@
-"""Batched ADMM QP solver with OSQP semantics: the controller's main path.
+"""Batched ADMM QP solver with OSQP semantics.
 
-Port of the main-path subset of the JAX package's ``ops/admm.py``: the
-warm tick over a lazy condensed QP (:func:`solve_warm_fused`) and the
-segmented transition solve (:func:`solve_segmented_fused`). Every tensor
-carries a leading batch axis ``B``; per-scenario scalars (cost, rho) are
-(B,) tensors. The friction-pyramid constraint matrix is never
-materialized (``srb.constraint_matvec`` / ``_rmatvec``).
+Port of the JAX package's ``ops/admm.py``. Every tensor carries a leading
+batch axis ``B``; per-scenario scalars (cost, rho) are (B,) tensors, and
+every max, residual and acceptance test is per scenario. The
+friction-pyramid constraint matrix is never materialized
+(``srb.constraint_matvec`` / ``_rmatvec``); a friction coefficient is a
+number or a (B,) tensor.
 
-Every KKT inverse comes from the fused-KKT kernel K1 through
-``kkt_schulz.kkt_schulz``: the CUDA kernel for float32 CUDA tensors, its
-plain PyTorch version for CPU tensors. The (n, n) KKT is never
-materialized on the card. ``ADMMSettings.schulz_impl`` keeps the JAX
-package's names ("auto", "pallas", "xla") so that settings carry over;
-all three take that one route.
+Two families of programs:
+
+- on a lazy condensed QP (``srb.LazyCondensedQP``): the warm tick
+  (:func:`solve_warm_fused`), the segmented transition solve
+  (:func:`solve_segmented_fused`) and the fresh cold solve
+  (:func:`solve_cold_fused`). Every KKT inverse comes from the fused-KKT
+  kernel K1 (``kkt_schulz.kkt_schulz``); the (n, n) KKT is never
+  materialized on the card;
+- on a dense QP: :func:`solve` (segmented, with the optional active-set
+  polish and float64 refinement), :func:`solve_warm` and their MPC
+  wrappers. Their "schulz" KKT inverses come from K3
+  (``schulz_batch.schulz_inverse_batch``); "chol" and "inv" are library
+  factorizations that flag a failed scenario with NaN, as JAX's do,
+  instead of raising.
+
+Every ADMM loop on the friction pyramid with a carried inverse runs on
+K6 (``admm_iterations.admm_loop``); the plain loop remains for other
+constraint operators (the balance QP) and the "chol" solver.
+
+Each kernel wrapper launches its CUDA kernel on float32 CUDA tensors and
+takes its plain PyTorch version on CPU tensors. ``ADMMSettings.
+schulz_impl`` keeps the JAX package's names ("auto", "pallas", "xla") so
+that settings carry over; all three take those kernels.
 """
 
 import functools
@@ -22,15 +39,16 @@ import torch
 
 from go1_qp_mpc_controller_torch.config import params as P
 from go1_qp_mpc_controller_torch.models import srb
-from go1_qp_mpc_controller_torch.ops import kkt_schulz
+from go1_qp_mpc_controller_torch.ops import (admm_iterations, kkt_schulz,
+                                             schulz_batch)
 
 
 class ADMMSettings(NamedTuple):
     """Solver hyperparameters; same fields and defaults as the JAX
     package's ``ADMMSettings`` (its docstring records the measurements
-    behind each). Only the fused lazy-QP programs are ported: settings
-    with ``polish=True`` or ``refine_f64=True`` need the dense solve,
-    which raises ``NotImplementedError`` in the controller."""
+    behind each). ``polish`` and ``refine_f64`` apply to the dense
+    :func:`solve`; ``refine_f64`` always refines in float64 (torch has no
+    global 64-bit switch to forget)."""
     seg_iters: int = 50
     segments: int = 4
     first_seg_iters: int = 0
@@ -106,11 +124,32 @@ def _scaled_schulz_coeffs(l0, tail=2, margin=1e-3):
 
 
 def _schulz_inverse(m_mat, iters, x0=None, coeffs=None):
-    """Newton-Schulz inverse of (B, n, n) SPD matrices on the
-    Jacobi-balanced matrix, with the basin-safeguarded warm start."""
+    """Newton-Schulz inverse of (B, n, n) UNBALANCED SPD matrices on the
+    Jacobi-balanced matrix, with the basin-safeguarded warm start ``x0``:
+    ``coeffs`` (a scaled schedule) or else ``iters`` plain steps. Runs on
+    K3 (``schulz_batch.schulz_inverse_batch``). Also the JAX package's
+    ``_schulz_refine_warm`` (``iters`` plain steps from the carried
+    inverse)."""
     if coeffs is None:
         coeffs = (1.0,) * iters
-    return kkt_schulz.schulz_balanced_plain(m_mat, x0, coeffs)
+    return schulz_batch.schulz_inverse_batch(m_mat, x0, coeffs)
+
+
+def _mu_col(mu):
+    """A (B,) per-scenario friction coefficient as a (B, 1) column, which
+    broadcasts against the (B, 40) per-leg planes of the pyramid
+    operators; a number stays as it is."""
+    return mu[:, None] if torch.is_tensor(mu) and mu.dim() == 1 else mu
+
+
+def _bmv(a, v):
+    """Batched matrix-vector product (B, n, k) x (B, k) -> (B, n)."""
+    return (a @ v[..., None])[..., 0]
+
+
+def _minv_solve(minv):
+    """The KKT solve rhs -> minv rhs on a carried inverse."""
+    return functools.partial(_bmv, minv)
 
 
 def _pyramid_band_diags(w, mu):
@@ -152,11 +191,11 @@ def _resolved_impl(settings):
         raise ValueError(f"unknown schulz_impl {settings.schulz_impl!r}")
 
 
-def _bounds(lazy):
+def _bounds(lb, ub):
     """(eq, lb_f, ub_f): equality rows and the finite-clipped bounds."""
-    eq = torch.isclose(lazy.lb, lazy.ub)
-    big = torch.finfo(lazy.lb.dtype).max / 8
-    return eq, torch.clamp(lazy.lb, min=-big), torch.clamp(lazy.ub, max=big)
+    eq = torch.isclose(lb, ub)
+    big = torch.finfo(lb.dtype).max / 8
+    return eq, torch.clamp(lb, min=-big), torch.clamp(ub, max=big)
 
 
 def _rho_vec(eq, rho, settings):
@@ -164,15 +203,17 @@ def _rho_vec(eq, rho, settings):
                        rho[:, None])
 
 
-def _admm_iterations(minv, x, z, y, qbar, lb_f, ub_f, rho_vec, iters,
-                     settings, matvec, rmatvec):
-    """``iters`` ADMM iterations on the carried inverse (the JAX
-    package's fori_loop body)."""
-    alpha = settings.alpha
-    sigma = settings.sigma
+def _admm_iterations(kkt_solve, x, z, y, qbar, lb_f, ub_f, rho_vec, iters,
+                     alpha, sigma, matvec, rmatvec):
+    """``iters`` ADMM iterations (the JAX package's fori_loop body);
+    ``kkt_solve`` maps rhs -> M^-1 rhs (:func:`_minv_solve` on a carried
+    inverse). The plain version of kernel K6 (``ops/admm_iterations.py``)
+    on the friction pyramid; on the card it runs only for other
+    constraint operators (the balance QP) or the "chol" KKT solver, which
+    carries no inverse."""
     for _ in range(iters):
         rhs = sigma * x - qbar + rmatvec(rho_vec * z - y)
-        x_t = (minv @ rhs[..., None])[..., 0]
+        x_t = kkt_solve(rhs)
         z_t = matvec(x_t)
         x_new = alpha * x_t + (1.0 - alpha) * x
         z_mid = alpha * z_t + (1.0 - alpha) * z
@@ -186,6 +227,31 @@ def _amax(a):
     return torch.amax(torch.abs(a), dim=-1)
 
 
+def _adapted_rho(rho, x, z, y, qbar, px, matvec, rmatvec, settings):
+    """OSQP's inter-segment rule on scaled quantities (px = P x): rho
+    times sqrt(relative primal / relative dual residual), clipped to
+    adapt_factor_max, applied only outside the (0.2, 5) deadband and
+    while either residual exceeds adapt_tol, then clipped to
+    [rho_min, rho_max]."""
+    eps = 1e-15
+    cx = matvec(x)
+    prim = _amax(cx - z) / torch.clamp(torch.maximum(_amax(cx), _amax(z)),
+                                       min=eps)
+    cty = rmatvec(y)
+    dual = (_amax(px + qbar + cty)
+            / torch.clamp(torch.maximum(
+                _amax(px), torch.maximum(_amax(qbar), _amax(cty))),
+                min=eps))
+    factor = torch.sqrt(prim / torch.clamp(dual, min=eps))
+    fmax = settings.adapt_factor_max
+    factor = torch.clamp(factor, 1.0 / fmax, fmax)
+    one = torch.ones_like(factor)
+    factor = torch.where((factor > 5.0) | (factor < 0.2), factor, one)
+    factor = torch.where(torch.maximum(prim, dual) > settings.adapt_tol,
+                         factor, one)
+    return torch.clamp(rho * factor, settings.rho_min, settings.rho_max)
+
+
 def _finite_latch(x, y, z):
     """Zero the iterates of non-finite scenarios; returns the mask too."""
     finite = torch.isfinite(x).all(-1) & torch.isfinite(y).all(-1)
@@ -195,17 +261,31 @@ def _finite_latch(x, y, z):
             torch.where(f, z, torch.zeros_like(z)))
 
 
+def _iterate(minv, x, z, y, qbar, lb_f, ub_f, rho_vec, iters, settings, mu,
+             matvec, rmatvec):
+    """``iters`` ADMM iterations on a carried inverse: on the friction
+    pyramid (``mu`` given) through K6 (``admm_iterations.admm_loop``),
+    otherwise the plain loop on ``matvec`` / ``rmatvec``."""
+    if mu is not None:
+        return admm_iterations.admm_loop(minv, qbar, lb_f, ub_f, rho_vec, mu,
+                                         x, z, y, iters, settings.alpha,
+                                         settings.sigma)
+    return _admm_iterations(_minv_solve(minv), x, z, y, qbar, lb_f, ub_f,
+                            rho_vec, iters, settings.alpha, settings.sigma,
+                            matvec, rmatvec)
+
+
 def _warm_finish(minv, hessian, gradient, cost, qbar, lb_f, ub_f, rho,
-                 rho_vec, matvec, rmatvec, warm, settings):
-    """Warm-tick tail: fixed ADMM iterations, NaN latch, residuals and the
-    optional end-of-tick rho adaptation. ``hessian`` is a matvec callable
-    v -> H v."""
+                 rho_vec, matvec, rmatvec, warm, settings, mu):
+    """Warm-tick tail: fixed ADMM iterations (:func:`_iterate`; ``mu`` is
+    the pyramid's friction, None for another operator), NaN latch,
+    residuals and the optional end-of-tick rho adaptation. ``hessian`` is
+    a matvec callable v -> H v."""
     x = warm.x
     y = warm.y * cost[:, None]
     z = torch.clamp(matvec(x), lb_f, ub_f)
-    x, z, y = _admm_iterations(minv, x, z, y, qbar, lb_f, ub_f, rho_vec,
-                               settings.seg_iters, settings, matvec,
-                               rmatvec)
+    x, z, y = _iterate(minv, x, z, y, qbar, lb_f, ub_f, rho_vec,
+                       settings.seg_iters, settings, mu, matvec, rmatvec)
     finite, x, y, z = _finite_latch(x, y, z)
 
     y_out = y / cost[:, None]
@@ -253,8 +333,9 @@ def solve_warm_fused(lazy, warm, settings, mu):
     Returns:
       (ADMMSolution, next WarmState).
     """
+    mu = _mu_col(mu)
     hess = functools.partial(srb.lazy_hessian_matvec, lazy)
-    eq, lb_f, ub_f = _bounds(lazy)
+    eq, lb_f, ub_f = _bounds(lazy.lb, lazy.ub)
     matvec = functools.partial(srb.constraint_matvec, mu=mu)
     rmatvec = functools.partial(srb.constraint_rmatvec, mu=mu)
     rho = warm.rho
@@ -269,7 +350,7 @@ def solve_warm_fused(lazy, warm, settings, mu):
                                  x0=warm.minv, coeffs=coeffs)
     qbar = cost[:, None] * lazy.gradient
     return _warm_finish(minv, hess, lazy.gradient, cost, qbar, lb_f, ub_f,
-                        rho, rho_vec, matvec, rmatvec, warm, settings)
+                        rho, rho_vec, matvec, rmatvec, warm, settings, mu)
 
 
 def mpc_solve_warm_fused(lazy_qp, warm, settings=ADMMSettings(), mu=None):
@@ -292,8 +373,10 @@ def solve_segmented_fused(lazy, settings, mu, warm):
       (ADMMSolution, WarmState).
     """
     if settings.polish:
-        raise ValueError("solve_segmented_fused does not implement polish")
-    eq, lb_f, ub_f = _bounds(lazy)
+        raise ValueError("solve_segmented_fused does not implement polish; "
+                         "use mpc_solve on the dense QP")
+    mu = _mu_col(mu)
+    eq, lb_f, ub_f = _bounds(lazy.lb, lazy.ub)
     matvec = functools.partial(srb.constraint_matvec, mu=mu)
     rmatvec = functools.partial(srb.constraint_rmatvec, mu=mu)
     hess_mv = functools.partial(srb.lazy_hessian_matvec, lazy)
@@ -309,7 +392,6 @@ def solve_segmented_fused(lazy, settings, mu, warm):
     z = torch.clamp(matvec(x), lb_f, ub_f)
     minv = None
     rho_of_minv = rho
-    eps = 1e-15
     for k in range(settings.segments):
         iters_k = (settings.first_seg_iters
                    if (k == 0 and settings.first_seg_iters > 0)
@@ -328,28 +410,11 @@ def solve_segmented_fused(lazy, settings, mu, warm):
         minv = kkt_schulz.kkt_schulz(tiled4, dmain, off1, off2, cost_k,
                                      x0=minv, coeffs=coeffs)
         rho_of_minv = rho
-        x, z, y = _admm_iterations(minv, x, z, y, qbar, lb_f, ub_f,
-                                   rho_vec, iters_k, settings, matvec,
-                                   rmatvec)
-
-        # OSQP inter-segment adaptation
-        cx = matvec(x)
-        prim = _amax(cx - z) / torch.clamp(torch.maximum(_amax(cx),
-                                                         _amax(z)), min=eps)
-        px = cost[:, None] * hess_mv(x)
-        cty = rmatvec(y)
-        dual = (_amax(px + qbar + cty)
-                / torch.clamp(torch.maximum(
-                    _amax(px), torch.maximum(_amax(qbar), _amax(cty))),
-                    min=eps))
-        factor = torch.sqrt(prim / torch.clamp(dual, min=eps))
-        fmax = settings.adapt_factor_max
-        factor = torch.clamp(factor, 1.0 / fmax, fmax)
-        one = torch.ones_like(factor)
-        factor = torch.where((factor > 5.0) | (factor < 0.2), factor, one)
-        factor = torch.where(torch.maximum(prim, dual) > settings.adapt_tol,
-                             factor, one)
-        rho = torch.clamp(rho * factor, settings.rho_min, settings.rho_max)
+        x, z, y = _iterate(minv, x, z, y, qbar, lb_f, ub_f, rho_vec,
+                           iters_k, settings, mu, matvec, rmatvec)
+        rho = _adapted_rho(rho, x, z, y, qbar,
+                           cost[:, None] * hess_mv(x), matvec, rmatvec,
+                           settings)
 
     finite, x, y, z = _finite_latch(x, y, z)
     y_out = y / cost[:, None]
@@ -361,3 +426,373 @@ def solve_segmented_fused(lazy, settings, mu, warm):
                        dual_res=torch.where(finite, dual_r, big))
     minv_out = minv * (rho_of_minv / rho)[:, None, None]
     return sol, WarmState(x=x, y=y_out, rho=rho, minv=minv_out)
+
+
+def mpc_rho0_analytic(contacts, mu, foot_pos):
+    """Analytic per-scenario ADMM rho0 (B,) for fresh condensed-MPC solves
+    (see the JAX package's docstring for the measured structure):
+    statically balanceable contact patterns (3-4 stance legs or a
+    diagonal pair) take rho_min = 1e-3; side pairs take
+    10^(4.2 - 6 mu - 9.9 height) clipped to [1e-3, 1].
+
+    Args:
+      contacts: (B, 4) bool, leg order FL, FR, RL, RR.
+      mu: friction coefficient, a number or (B,).
+      foot_pos: (B, 4, 3) feet relative to the CoM (world-aligned).
+    """
+    cb = contacts.to(torch.bool)
+    cf = contacts.to(foot_pos.dtype)
+    balanceable = ((cb.sum(-1) >= 3) | (cb[:, 0] & cb[:, 3])
+                   | (cb[:, 1] & cb[:, 2]))
+    height = (-torch.sum(foot_pos[..., 2] * cf, dim=-1)
+              / torch.clamp(cf.sum(-1), min=1.0))
+    side = torch.pow(10.0, 4.2 - 6.0 * mu - 9.9 * height)
+    return torch.where(balanceable, torch.full_like(side, 1e-3),
+                       torch.clamp(side, 1e-3, 1.0))
+
+
+def solve_cold_fused(lazy, settings, mu, rho0):
+    """Fresh cold MPC solve as one single-segment program: K1 builds the
+    KKT at the per-scenario ``rho0`` (:func:`mpc_rho0_analytic`) and runs
+    one scaled Schulz schedule (edge ``schulz_l0``, 1e-6 when unset), then
+    ``seg_iters`` ADMM iterations and the end-of-solve rho adaptation of
+    the carry, capped at 2x (see the JAX package's docstring).
+
+    Returns:
+      (ADMMSolution, WarmState), as :func:`solve` with return_warm=True.
+    """
+    mu = _mu_col(mu)
+    hess = functools.partial(srb.lazy_hessian_matvec, lazy)
+    eq, lb_f, ub_f = _bounds(lazy.lb, lazy.ub)
+    matvec = functools.partial(srb.constraint_matvec, mu=mu)
+    rmatvec = functools.partial(srb.constraint_rmatvec, mu=mu)
+    rho = torch.as_tensor(rho0, dtype=lazy.gradient.dtype,
+                          device=lazy.gradient.device).expand(
+                              lazy.gradient.shape[:1])
+    rho_vec = _rho_vec(eq, rho, settings)
+    l0 = settings.schulz_l0 if settings.schulz_l0 > 0 else 1e-6
+    _resolved_impl(settings)
+    tiled4, dmain, off1, off2, cost = _kkt_kernel_operands(
+        lazy, rho_vec, settings.sigma, mu)
+    qbar = cost[:, None] * lazy.gradient
+    minv = kkt_schulz.kkt_schulz(tiled4, dmain, off1, off2, cost,
+                                 coeffs=_scaled_schulz_coeffs(l0))
+    warm0 = WarmState(x=torch.zeros_like(lazy.gradient),
+                      y=torch.zeros_like(lazy.lb), rho=rho, minv=minv)
+    return _warm_finish(minv, hess, lazy.gradient, cost, qbar, lb_f, ub_f,
+                        rho, rho_vec, matvec, rmatvec, warm0,
+                        settings._replace(
+                            adapt_warm_rho=True,
+                            adapt_factor_max=min(settings.adapt_factor_max,
+                                                 2.0)), mu)
+
+
+def mpc_solve_cold(lazy_qp, settings=ADMMSettings(), mu=None, rho0=None,
+                   contacts=None, foot_pos=None):
+    """Fresh cold MPC solve over a LazyCondensedQP
+    (:func:`solve_cold_fused`); the analytic rho0 comes from
+    (contacts, mu, foot_pos) unless ``rho0`` is given."""
+    mu = P.MPC_MU if mu is None else mu
+    if rho0 is None:
+        if contacts is None or foot_pos is None:
+            raise ValueError(
+                "mpc_solve_cold needs either rho0 or BOTH contacts and "
+                "foot_pos (to compute the analytic rho0)")
+        rho0 = mpc_rho0_analytic(contacts, mu, foot_pos)
+    return solve_cold_fused(lazy_qp, settings, mu, rho0)
+
+
+# ------------------------- the dense solver ---------------------------------
+
+def _pyramid_ctc_dense(w, mu):
+    """C' diag(w) C (B, n, n) for the friction pyramid: a 3x3 block per
+    (step, leg) on three strided diagonals."""
+    return kkt_schulz.band_matrix(*_pyramid_band_diags(w, mu))
+
+
+def _pyramid_kkt_fused(pbar, sigma, w, mu):
+    """M = pbar + sigma I + C' diag(w) C for the friction pyramid."""
+    main, off1, off2 = _pyramid_band_diags(w, mu)
+    return pbar + kkt_schulz.band_matrix(main + sigma, off1, off2)
+
+
+def _nan_where_failed(mat, info):
+    """NaN out the scenarios whose factorization reported failure, as JAX's
+    cholesky / inv return NaN there: the solve's non-finite latch or the
+    polish acceptance test then handles them, and nothing waits for the
+    device to check ``info``."""
+    return torch.where((info != 0)[:, None, None],
+                       torch.full_like(mat, float("nan")), mat)
+
+
+def _make_kkt_solve(m_mat, settings, warm_minv=None, solver=None):
+    """(kkt_solve, carry_minv) for the configured ``kkt_solver`` on the
+    (B, n, n) KKT: "chol" (factor + two triangular solves per
+    application, no carried inverse), "inv" (library inverse) or "schulz"
+    (K3 on the full ``schulz_iters`` schedule even from a warm start: a
+    basin-rejected start restarts cold and needs all of it; the scaled
+    edge is ``schulz_l0_refine`` with a warm start and ``schulz_l0_first``
+    without one, else ``schulz_l0``)."""
+    solver = settings.kkt_solver if solver is None else solver
+    if solver == "chol":
+        chol, info = torch.linalg.cholesky_ex(m_mat)
+        chol = _nan_where_failed(chol, info)
+
+        def solve_fn(rhs):
+            w = torch.linalg.solve_triangular(chol, rhs[..., None],
+                                              upper=False)
+            return torch.linalg.solve_triangular(
+                chol.transpose(-1, -2), w, upper=True)[..., 0]
+
+        return solve_fn, None
+    if solver == "inv":
+        minv, info = torch.linalg.inv_ex(m_mat)
+        minv = _nan_where_failed(minv, info)
+    elif solver == "schulz":
+        _resolved_impl(settings)
+        l0 = settings.schulz_l0
+        if warm_minv is not None and settings.schulz_l0_refine > 0:
+            l0 = settings.schulz_l0_refine
+        elif warm_minv is None and settings.schulz_l0_first > 0:
+            l0 = settings.schulz_l0_first
+        coeffs = _scaled_schulz_coeffs(l0) if l0 > 0 else None
+        minv = _schulz_inverse(m_mat, settings.schulz_iters, warm_minv,
+                               coeffs)
+    else:
+        raise ValueError(f"unknown kkt solver {solver!r}")
+    return _minv_solve(minv), minv
+
+
+def solve(hessian, gradient, lb, ub, matvec, rmatvec, rmatvec_dense,
+          settings, warm_x=None, warm_y=None, warm_rho=None,
+          return_warm=False, kkt_fused=None, mu=None):
+    """Solve min 1/2 x'Px + q'x s.t. lb <= Cx <= ub for a batch of QPs.
+
+    Cost scaling |P| -> 1, then ``segments`` ADMM segments, each on a KKT
+    factorized at the current rho (the inverse carried across segments,
+    rescaled by the rho ratio) followed by OSQP's residual-ratio rho
+    adaptation; then the optional active-set polish and float64
+    refinement, and the per-scenario non-finite latch.
+
+    Args:
+      hessian, gradient: (B, n, n), (B, n).
+      lb, ub: (B, m) bounds; equality rows encoded as lb == ub.
+      matvec: u (B, n) -> C u (B, m); rmatvec: y (B, m) -> C' y (B, n);
+        both must accept float64 operands (``refine_f64``).
+      rmatvec_dense: w (B, m) -> C' diag(w) C (B, n, n).
+      warm_x, warm_y, warm_rho: optional warm starts ((B, n), (B, m)
+        unscaled, (B,)).
+      return_warm: also return the WarmState carry, which keeps the
+        pre-polish ADMM iterates and the last inverse rescaled to the
+        final rho (identity when the solver carries none).
+      kkt_fused: optional (pbar, sigma, rho_vec) -> M, the KKT matrix.
+      mu: the friction coefficient when C is the MPC friction pyramid
+        (``mpc_solve`` passes it): segments on a carried inverse then run
+        on K6.
+
+    Returns:
+      ADMMSolution (duals unscaled), and the WarmState with return_warm.
+    """
+    batch, n = gradient.shape
+    m = lb.shape[-1]
+    dtype, device = gradient.dtype, gradient.device
+    eye_n = torch.eye(n, dtype=dtype, device=device)
+
+    cost = 1.0 / torch.clamp(torch.amax(torch.abs(hessian), dim=(-2, -1)),
+                             min=1e-12)
+    pbar = cost[:, None, None] * hessian
+    qbar = cost[:, None] * gradient
+    eq, lb_f, ub_f = _bounds(lb, ub)
+    alpha, sigma = settings.alpha, settings.sigma
+
+    x = (torch.zeros((batch, n), dtype=dtype, device=device)
+         if warm_x is None else warm_x)
+    y = (torch.zeros((batch, m), dtype=dtype, device=device)
+         if warm_y is None else warm_y * cost[:, None])
+    rho = (torch.full((batch,), settings.rho, dtype=dtype, device=device)
+           if warm_rho is None else warm_rho)
+    z = torch.clamp(matvec(x), lb_f, ub_f)
+
+    minv = None
+    rho_of_minv = rho
+    for k in range(settings.segments):
+        iters_k = (settings.first_seg_iters
+                   if (k == 0 and settings.first_seg_iters > 0)
+                   else settings.seg_iters)
+        rho_vec = _rho_vec(eq, rho, settings)
+        if kkt_fused is not None:
+            m_mat = kkt_fused(pbar, sigma, rho_vec)
+        else:
+            m_mat = pbar + sigma * eye_n + rmatvec_dense(rho_vec)
+        if minv is not None:
+            # M scales ~ rho where the constraint term dominates
+            minv = minv * (rho_of_minv / rho)[:, None, None]
+        kkt_solve, minv = _make_kkt_solve(m_mat, settings, minv)
+        rho_of_minv = rho
+        if minv is None:            # "chol": no inverse to carry
+            x, z, y = _admm_iterations(kkt_solve, x, z, y, qbar, lb_f, ub_f,
+                                       rho_vec, iters_k, alpha, sigma,
+                                       matvec, rmatvec)
+        else:
+            x, z, y = _iterate(minv, x, z, y, qbar, lb_f, ub_f, rho_vec,
+                               iters_k, settings, mu, matvec, rmatvec)
+        rho = _adapted_rho(rho, x, z, y, qbar, _bmv(pbar, x), matvec,
+                           rmatvec, settings)
+
+    # polish and refinement post-process the returned solution; the warm
+    # carry keeps the raw ADMM iterates (polish zeroes inactive duals)
+    x_admm, y_admm = x, y
+    if settings.polish:
+        x, y = _polish(pbar, qbar, lb, ub, lb_f, ub_f, eq, matvec, rmatvec,
+                       rmatvec_dense, x, y, settings)
+        z = torch.clamp(matvec(x), lb_f, ub_f)
+    if settings.refine_f64 and dtype != torch.float64:
+        f64 = torch.float64
+        x64, y64 = _polish(
+            pbar.to(f64), qbar.to(f64), lb.to(f64), ub.to(f64),
+            lb_f.to(f64), ub_f.to(f64), eq, matvec, rmatvec,
+            lambda w: rmatvec_dense(w.to(dtype)).to(f64),
+            x.to(f64), y.to(f64),
+            settings._replace(polish_iters=4, polish_solver="inv"))
+        x, y = x64.to(dtype), y64.to(dtype)
+        z = torch.clamp(matvec(x), lb_f, ub_f)
+
+    finite, x, y, z = _finite_latch(x, y, z)
+    y_out = y / cost[:, None]
+    primal = _amax(matvec(x) - z)
+    dual = _amax(_bmv(hessian, x) + gradient + rmatvec(y_out))
+    big = torch.full_like(primal, 1e6)
+    sol = ADMMSolution(x=x, y=y_out, z=z, rho=rho,
+                       primal_res=torch.where(finite, primal, big),
+                       dual_res=torch.where(finite, dual, big))
+    if not return_warm:
+        return sol
+    if minv is None:
+        minv_out = eye_n.expand(batch, n, n).clone()
+    else:
+        minv_out = minv * (rho_of_minv / rho)[:, None, None]
+    f = finite[:, None]
+    x_c = torch.where(f, x_admm, torch.zeros_like(x_admm))
+    y_c = torch.where(f, y_admm / cost[:, None], torch.zeros_like(y_admm))
+    return sol, WarmState(x=x_c, y=y_c, rho=rho, minv=minv_out)
+
+
+def _polish(pbar, qbar, lb, ub, lb_f, ub_f, eq, matvec, rmatvec,
+            rmatvec_dense, x, y, settings):
+    """Masked active-set refinement (fixed-shape OSQP polish), per
+    scenario: rows whose dual and iterate both say active, plus the
+    equality rows, become equalities; ``polish_iters`` augmented-Lagrangian
+    passes solve the restricted problem on its own KKT
+    (``polish_solver``); the result is kept only where it stayed feasible
+    and did not raise the objective. Scaled quantities in, scaled dual
+    out."""
+    dtype = x.dtype
+    n = x.shape[-1]
+    delta = 1e-6 * torch.clamp(_amax(y), min=1.0)[:, None]
+    cx = matvec(x)
+    scale_b = 1.0 + torch.maximum(torch.abs(lb_f), torch.abs(ub_f))
+    near_lb = (cx - lb_f) < 1e-3 * scale_b
+    near_ub = (ub_f - cx) < 1e-3 * scale_b
+    act_low = (y < -delta) & torch.isfinite(lb) & near_lb
+    act_up = (y > delta) & torch.isfinite(ub) & near_ub
+    act = act_low | act_up | eq
+    d = act.to(dtype)
+    bvals = torch.where(act_up, ub_f, lb_f) * d
+
+    rho_p = settings.polish_rho
+    eye_n = torch.eye(n, dtype=dtype, device=x.device)
+    m_mat = pbar + settings.sigma * eye_n + rmatvec_dense(rho_p * d)
+    kkt_solve, _ = _make_kkt_solve(m_mat, settings, None,
+                                   solver=settings.polish_solver)
+    x_p, nu = x, torch.zeros_like(y)
+    for _ in range(settings.polish_iters):
+        rhs = -qbar + rmatvec(d * (rho_p * bvals - nu))
+        x_p = kkt_solve(rhs + settings.sigma * x_p)
+        nu = nu + rho_p * d * (matvec(x_p) - bvals)
+
+    def viol(v):
+        cv = matvec(v)
+        return torch.maximum(torch.amax(cv - ub_f, dim=-1),
+                             torch.amax(lb_f - cv, dim=-1))
+
+    def obj(v):
+        return (0.5 * torch.sum(v * _bmv(pbar, v), dim=-1)
+                + torch.sum(qbar * v, dim=-1))
+
+    tol = 1e-5 * (1.0 + _amax(bvals))
+    obj_x = obj(x)
+    obj_tol = 1e-6 * (1.0 + torch.abs(obj_x))
+    ok = ((viol(x_p) <= torch.maximum(viol(x), tol))
+          & (obj(x_p) <= obj_x + obj_tol))[:, None]
+    return torch.where(ok, x_p, x), torch.where(ok, d * nu, y)
+
+
+def solve_warm(hessian, gradient, lb, ub, matvec, rmatvec, rmatvec_dense,
+               settings, warm, warm_mu=None):
+    """One warm tick on a dense QP: refine the carried inverse with
+    ``schulz_refine`` safeguarded steps (K3), run one ADMM segment.
+
+    Args:
+      warm: WarmState from the previous tick (:func:`solve` with
+        return_warm, or :func:`warm_state_from_solution`).
+      rmatvec_dense: as in :func:`solve`; None builds the friction-pyramid
+        KKT (MPC problems) with friction ``warm_mu`` (default MPC_MU).
+
+    Returns:
+      (ADMMSolution, next WarmState).
+    """
+    n = gradient.shape[-1]
+    cost = 1.0 / torch.clamp(torch.amax(torch.abs(hessian), dim=(-2, -1)),
+                             min=1e-12)
+    pbar = cost[:, None, None] * hessian
+    qbar = cost[:, None] * gradient
+    eq, lb_f, ub_f = _bounds(lb, ub)
+    sigma = settings.sigma
+    rho = warm.rho
+    rho_vec = _rho_vec(eq, rho, settings)
+    mu = None
+    if rmatvec_dense is None:
+        mu = _mu_col(P.MPC_MU if warm_mu is None else warm_mu)
+        m_mat = _pyramid_kkt_fused(pbar, sigma, rho_vec, mu)
+    else:
+        m_mat = (pbar + sigma * torch.eye(n, dtype=pbar.dtype,
+                                          device=pbar.device)
+                 + rmatvec_dense(rho_vec))
+    minv = _schulz_inverse(m_mat, settings.schulz_refine, warm.minv)
+    return _warm_finish(minv, functools.partial(_bmv, hessian), gradient,
+                        cost, qbar, lb_f, ub_f, rho, rho_vec, matvec,
+                        rmatvec, warm, settings, mu)
+
+
+def warm_state_from_solution(sol, minv_seed=None):
+    """A WarmState after a cold :func:`solve`, seeded with ``minv_seed``
+    or the identity (the first warm tick's refinement then starts
+    safeguarded-cold)."""
+    batch, n = sol.x.shape
+    minv = (torch.eye(n, dtype=sol.x.dtype, device=sol.x.device).expand(
+        batch, n, n).clone() if minv_seed is None else minv_seed)
+    return WarmState(x=sol.x, y=sol.y, rho=sol.rho, minv=minv)
+
+
+def mpc_solve(qp, settings=ADMMSettings(), warm_x=None, warm_y=None,
+              warm_rho=None, mu=None, return_warm=False):
+    """Solve a batch of condensed MPC QPs (``srb.CondensedQP``) with
+    :func:`solve`."""
+    mu = _mu_col(P.MPC_MU if mu is None else mu)
+    return solve(qp.hessian, qp.gradient, qp.lb, qp.ub,
+                 functools.partial(srb.constraint_matvec, mu=mu),
+                 functools.partial(srb.constraint_rmatvec, mu=mu),
+                 functools.partial(_pyramid_ctc_dense, mu=mu), settings,
+                 warm_x=warm_x, warm_y=warm_y, warm_rho=warm_rho,
+                 return_warm=return_warm,
+                 kkt_fused=functools.partial(_pyramid_kkt_fused, mu=mu),
+                 mu=mu)
+
+
+def mpc_solve_warm(qp, warm, settings=ADMMSettings(), mu=None):
+    """Warm-tick MPC solve on a dense QP (:func:`solve_warm`)."""
+    mu = _mu_col(P.MPC_MU if mu is None else mu)
+    return solve_warm(qp.hessian, qp.gradient, qp.lb, qp.ub,
+                      functools.partial(srb.constraint_matvec, mu=mu),
+                      functools.partial(srb.constraint_rmatvec, mu=mu),
+                      None, settings, warm, warm_mu=mu)

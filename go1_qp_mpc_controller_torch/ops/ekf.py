@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from go1_qp_mpc_controller_torch.config.params import EKF_GRAVITY
-from go1_qp_mpc_controller_torch.ops import admm
+from go1_qp_mpc_controller_torch.ops import admm, kkt_schulz
 from go1_qp_mpc_controller_torch.utils import rotations
 from go1_qp_mpc_controller_torch.utils.device import const
 
@@ -135,12 +135,14 @@ def update_estimation(x, P, dt, root_rot_mat, imu_acc, imu_ang_vel,
                    height_meas], dim=-1)
     yhat = xbar @ c_mat.T
 
-    # innovation inverse by the scaled Newton-Schulz schedule
+    # innovation inverse by the scaled Newton-Schulz schedule, always the
+    # plain version: its TPU kernel (K4, batch in lanes) is not ported,
+    # and K3 is not built for n = 28
     s_mat = c_mat @ pbar @ c_mat.T + torch.diag_embed(r_diag)
     s_mat = 0.5 * (s_mat + s_mat.transpose(-1, -2))
     err = y - yhat
-    sinv = admm._schulz_inverse(
-        s_mat, 0, coeffs=admm._scaled_schulz_coeffs(SINV_L0))
+    sinv = kkt_schulz.schulz_balanced_plain(
+        s_mat, None, admm._scaled_schulz_coeffs(SINV_L0))
     k_gain = pbar @ c_mat.T @ sinv                               # (B, 18, 28)
     x_new = xbar + (k_gain @ err[..., None])[..., 0]
     # Joseph form: PSD for any gain, robust to the Schulz residual

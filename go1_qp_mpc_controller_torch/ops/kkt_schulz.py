@@ -42,6 +42,17 @@ def reset_launches():
     launches = 0
 
 
+def band_matrix(main, off1, off2):
+    """(B, n, n) symmetric band matrix from its diagonals: ``main``, then
+    ``off1`` at +-1 and ``off2`` at +-2 (each stored at the smaller index;
+    their last 1 and 2 entries are unused)."""
+    return (torch.diag_embed(main)
+            + torch.diag_embed(off1[..., :-1], 1)
+            + torch.diag_embed(off1[..., :-1], -1)
+            + torch.diag_embed(off2[..., :-2], 2)
+            + torch.diag_embed(off2[..., :-2], -2))
+
+
 def kkt_build_plain(tiled, dmain, off1, off2, cost):
     """Materialized (B, n, n) M = cost H + band (the kernel's build step).
 
@@ -56,26 +67,22 @@ def kkt_build_plain(tiled, dmain, off1, off2, cost):
     acc = coef[0][None, :, None, :] * tiled[:, 0][:, None]
     for k in range(1, 4):
         acc = acc + coef[k][None, :, None, :] * tiled[:, k][:, None]
-    band = (torch.diag_embed(dmain)
-            + torch.diag_embed(off1[:, :-1], 1)
-            + torch.diag_embed(off1[:, :-1], -1)
-            + torch.diag_embed(off2[:, :-2], 2)
-            + torch.diag_embed(off2[:, :-2], -2))
-    return cost[:, None, None] * acc.reshape(batch, n, n) + band
+    return (cost[:, None, None] * acc.reshape(batch, n, n)
+            + band_matrix(dmain, off1, off2))
 
 
 def schulz_balanced_core(mb, x0b=None, coeffs=(1.0,)):
     """Basin-safeguarded (scaled) Newton-Schulz on already-balanced
-    (B, n, n) matrices; returns the BALANCED inverse (the kernel's
-    Schulz step, ``_schulz_batch_body`` between balance and unbalance).
+    (B, n, n) matrices; returns the BALANCED inverse (the kernels' Schulz
+    step, ``_schulz_batch_body`` between balance and unbalance).
 
     Args:
       mb: (B, n, n) Jacobi-balanced matrices.
       x0b: optional (B, n, n) balanced warm inverses.
-      coeffs: per-step schedule (1.0 = plain Newton step), at least one.
+      coeffs: per-step schedule (1.0 = plain Newton step). An empty
+        schedule returns the warm start where it passes the basin test and
+        the scalar cold init c I elsewhere (c I without a warm start).
     """
-    if not coeffs:
-        raise ValueError("the Schulz schedule needs at least one step")
     n = mb.shape[-1]
     eye = torch.eye(n, dtype=mb.dtype, device=mb.device)
     eye2 = 2.0 * eye
@@ -90,13 +97,16 @@ def schulz_balanced_core(mb, x0b=None, coeffs=(1.0,)):
         # amin/amax propagate NaN like jnp.min/max: a NaN scenario fails
         ok = ((torch.amin(d, dim=-1) > 1e-4)
               & (torch.amax(row_inner, dim=-1) < 3.0))[:, None, None]
+        if not coeffs:
+            return torch.where(ok, x0b, c * eye)
         stepped = x0b @ (eye2 - inner)
         ac = coeffs[0] * c
         stepped_cold = ac * (eye2 - ac * mb)
         x = torch.where(ok, stepped, stepped_cold)
         start = 1
-    elif coeffs[0] != 1.0:
-        # the scaled first step from the scalar cold init, folded
+    elif coeffs:
+        # the first step from the scalar cold init c I, folded (exact for
+        # any coefficient, the plain a = 1 included): no product
         ac = coeffs[0] * c
         x = ac * (eye2 - ac * mb)
         start = 1
@@ -118,7 +128,9 @@ def schulz_balanced_core(mb, x0b=None, coeffs=(1.0,)):
 
 def schulz_balanced_plain(m, x0=None, coeffs=(1.0,)):
     """Balance + :func:`schulz_balanced_core` + unbalance on (B, n, n)
-    UNBALANCED SPD matrices with optional unbalanced warm inverses."""
+    UNBALANCED SPD matrices with optional unbalanced warm inverses: the
+    plain PyTorch version of K3 (``ops/schulz_batch.py``), and K1's after
+    the KKT build."""
     s = torch.rsqrt(torch.diagonal(m, dim1=-2, dim2=-1))
     unb = s[:, :, None] * s[:, None, :]
     x0b = None if x0 is None else x0 / unb
@@ -163,6 +175,9 @@ def kkt_schulz(tiled, dmain, off1, off2, cost, x0=None, coeffs=(1.0,)):
       x0: optional (B, 120, 120) unbalanced warm inverses.
       coeffs: the step schedule (1 to 64 steps).
     """
+    if not 0 < len(coeffs) <= MAX_COEFFS:
+        raise ValueError(f"kkt_schulz: schedule of {len(coeffs)} steps; "
+                         f"1..{MAX_COEFFS} supported")
     if tiled.device.type == "cpu":
         return kkt_schulz_plain(tiled, dmain, off1, off2, cost, x0, coeffs)
     batch = tiled.shape[0]
@@ -172,9 +187,6 @@ def kkt_schulz(tiled, dmain, off1, off2, cost, x0=None, coeffs=(1.0,)):
     check_cuda_f32("kkt_schulz", "cost", cost, (batch,))
     if x0 is not None:
         check_cuda_f32("kkt_schulz", "x0", x0, (batch, N, N))
-    if not 0 < len(coeffs) <= MAX_COEFFS:
-        raise ValueError(f"kkt_schulz: schedule of {len(coeffs)} steps; "
-                         f"1..{MAX_COEFFS} supported")
     out = torch.empty((batch, N, N), dtype=torch.float32,
                       device=tiled.device)
     if batch == 0:

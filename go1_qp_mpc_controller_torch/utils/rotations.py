@@ -87,3 +87,12 @@ def cal_dihedral_angle(coef_a, coef_b):
     den = (torch.linalg.norm(coef_a, dim=-1)
            * torch.linalg.norm(coef_b, dim=-1))
     return torch.arccos(torch.clamp(num / den, -1.0, 1.0))
+
+
+def wrap_yaw_error(yaw_d, yaw):
+    """Shortest-path yaw error (A1RobotControl.cpp:325-332): an error
+    beyond +-1.5 pi is shifted by 2 pi toward the current yaw."""
+    err = yaw_d - yaw
+    two_pi = 2.0 * torch.pi
+    err = torch.where(err > 1.5 * torch.pi, err - two_pi, err)
+    return torch.where(err < -1.5 * torch.pi, err + two_pi, err)

@@ -22,7 +22,8 @@ from go1_qp_mpc_controller_torch.envs import rollout as t_rollout
 from go1_qp_mpc_controller_torch.envs import srb_sim as t_sim
 from go1_qp_mpc_controller_torch.models import types as t_types
 from go1_qp_mpc_controller_torch.ops import admm as t_admm
-from go1_qp_mpc_controller_torch.ops import kkt_schulz, observe_ekf
+from go1_qp_mpc_controller_torch.ops import admm_iterations, kkt_schulz
+from go1_qp_mpc_controller_torch.ops import observe_ekf, schulz_batch
 from go1_qp_mpc_controller_tpu.ctrl import controller as j_ctrl
 from go1_qp_mpc_controller_tpu.envs import rollout as j_rollout
 from go1_qp_mpc_controller_tpu.envs import srb_sim as j_sim
@@ -41,7 +42,7 @@ J_SETTINGS = j_admm.ADMMSettings(schulz_impl="auto", **COLD)
 T_SETTINGS = t_admm.ADMMSettings(schulz_impl="auto", **COLD)
 
 
-def _jax_tick_fn(compact_k):
+def _jax_tick_fn(compact_k, settings=J_SETTINGS):
     model = j_types.default_robot_model(jnp.float64)
     params = j_types.default_ctrl_params(jnp.float64)
     dt = jnp.asarray(DT, jnp.float64)
@@ -53,7 +54,7 @@ def _jax_tick_fn(compact_k):
 
         ctrl = jax.vmap(observe)(c.ctrl, c.sim, c.stance_forces_z)
         ctrl = j_ctrl.control_step_batched(ctrl, model, params, dt,
-                                           settings=J_SETTINGS,
+                                           settings=settings,
                                            compact_k=compact_k)
         sim, fz = jax.vmap(lambda sm, tau, con, tgt: j_sim.step(
             sm, model, tau, con, tgt, dt))(
@@ -145,27 +146,41 @@ def test_routed_tick_matches_jax(setup, case, compact_k):
 
 
 def test_cpu_tick_launches_no_kernel(setup):
-    """On the CPU both wrappers take their plain versions: a tick leaves
-    both launch counters at 0."""
+    """On the CPU every wrapper takes its plain version: a tick leaves all
+    launch counters at 0."""
     c0, _ = setup
-    kkt_schulz.reset_launches()
-    observe_ekf.reset_launches()
+    counters = (kkt_schulz, observe_ekf, schulz_batch, admm_iterations)
+    for module in counters:
+        module.reset_launches()
     model = t_types.default_robot_model(F64, "cpu")
     params = t_types.default_ctrl_params(F64, "cpu")
     t_rollout.rollout_batched(_to_port(_flip(c0, [0])), model, params, 1,
-                              DT, settings=T_SETTINGS)
-    assert kkt_schulz.launches == 0
-    assert observe_ekf.launches == 0
+                              DT, settings=t_admm.ADMMSettings())
+    assert all(module.launches == 0 for module in counters)
 
 
-def test_polished_cold_solve_is_not_ported(setup):
+def test_polished_cold_tick_matches_jax(setup):
+    """With the default ``ADMMSettings()`` (polished) the cold branch takes
+    the dense polished solve (K3 on the card). A tick whose flagged
+    scenario is solved cold under it, on the compacted sub-batch, equals
+    the JAX tick to round-off."""
     c0, _ = setup
+    c = _flip(c0, [0])
+    want = _jax_tick_fn(2, j_admm.ADMMSettings())(c)
     model = t_types.default_robot_model(F64, "cpu")
     params = t_types.default_ctrl_params(F64, "cpu")
-    polished = T_SETTINGS._replace(polish=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_rollout.rollout_batched(_to_port(_flip(c0, [0])), model, params, 1,
-                                  DT, settings=polished)
+    stats = {}
+    got, _ = t_rollout.rollout_batched(_to_port(c), model, params, 1, DT,
+                                       settings=t_admm.ADMMSettings(),
+                                       compact_k=2, stats=stats)
+    assert stats == {"compact": 1}
+    for name in ("foot_forces_grf", "joint_torques", "qp_warm_x",
+                 "qp_warm_y", "qp_warm_rho", "qp_warm_minv"):
+        w = np.asarray(getattr(want.ctrl, name))
+        np.testing.assert_allclose(getattr(got.ctrl, name).numpy(), w,
+                                   rtol=0,
+                                   atol=1e-8 * max(1.0, np.abs(w).max()),
+                                   err_msg=name)
 
 
 def test_robust_tick_matches_jax(setup):

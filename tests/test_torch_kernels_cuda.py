@@ -1,6 +1,6 @@
-"""The port's CUDA kernels on the card: K1 and K2 against their plain
-versions, the wrappers' input checks, and a few main-path ticks through
-both kernels.
+"""The port's CUDA kernels on the card: K1, K2, K3 and K6 against their
+plain versions, the wrappers' input checks, and a few ticks of the paths
+through them.
 
 These tests need an NVIDIA GPU and ``nvcc`` (the kernels build at first
 use); without a card they skip. This file imports neither JAX nor the JAX
@@ -8,18 +8,28 @@ package. On the GPU machine:
 
     python3 -m pytest tests/test_torch_kernels_cuda.py
 
-Tolerances: K1 3e-4 x max|plain| (the JAX tests' Schulz tolerance), over
-the batch and per scenario in balanced coordinates; K2 1e-5 x max(1,
-max|plain|), 5e-4 on x and P (tests/test_pallas_ekf.py).
+Tolerances: K1 and K3 3e-4 x max|plain| (the JAX tests' Schulz
+tolerance), over the batch and per scenario in balanced coordinates; K2
+1e-5 x max(1, max|plain|), 5e-4 on x and P (tests/test_pallas_ekf.py);
+K6 per scenario on x (and z): within 1e-3 of the plain version
+(tests/test_pallas_admm.py) and within 2e-3 of the same loop in float64
+(1e-3 more for the float32 loop's own round-off on the QP's flat
+directions); on y within 0.1 x (1 + max|y|) of the plain version.
 """
+
+import sys
 
 import pytest
 import torch
 
+sys.path.insert(0, ".")        # chip_smoke.py lives at the repo root
+import chip_smoke  # noqa: E402
+
 from go1_qp_mpc_controller_torch.envs import rollout
 from go1_qp_mpc_controller_torch.models import kinematics, srb, types
-from go1_qp_mpc_controller_torch.ops import admm, ekf, kkt_schulz
-from go1_qp_mpc_controller_torch.ops import observe_ekf
+from go1_qp_mpc_controller_torch.ops import admm, admm_iterations, ekf
+from go1_qp_mpc_controller_torch.ops import kkt_schulz, observe_ekf, qp
+from go1_qp_mpc_controller_torch.ops import schulz_batch
 from go1_qp_mpc_controller_torch.utils import rotations
 
 pytestmark = pytest.mark.cuda
@@ -33,8 +43,9 @@ def card():
     return torch.device("cuda")
 
 
-def _k1_operands(batch, device, seed=0):
-    """K1 operands of seeded random scenarios around the standing pose."""
+def _lazy(batch, device, seed=0):
+    """Lazy condensed QPs of seeded random scenarios around the standing
+    pose."""
     gen = torch.Generator().manual_seed(seed)
     rn = lambda *s: torch.randn(s, generator=gen, dtype=F32).to(device)
     model = types.default_robot_model(F32, device)
@@ -53,9 +64,14 @@ def _k1_operands(batch, device, seed=0):
         srb.calculate_A_c(euler),
         srb.calculate_B_c(model.mass, model.trunk_inertia, rot, feet),
         params.mpc_dt)
-    lazy = srb.condense_nilpotent_lazy(a_d, b_d, x0, x_ref,
+    return srb.condense_nilpotent_lazy(a_d, b_d, x0, x_ref,
                                        params.q_weights, params.r_weights,
                                        contacts)
+
+
+def _k1_operands(batch, device, seed=0):
+    """K1 operands of seeded random scenarios around the standing pose."""
+    lazy = _lazy(batch, device, seed)
     eq = torch.isclose(lazy.lb, lazy.ub)
     rho_vec = torch.where(eq, 50.0, 0.05).to(F32)
     return admm._kkt_kernel_operands(lazy, rho_vec, 1e-6, 0.3)
@@ -136,11 +152,13 @@ def test_main_path_ticks_launch_both_kernels(card):
                                  schulz_l0_refine=1e-4, schulz_impl="auto")
     kkt_schulz.reset_launches()
     observe_ekf.reset_launches()
+    admm_iterations.reset_launches()
     _, trace = rollout.rollout_batched(carry, model, params, 5, 0.002,
                                        settings=settings)
     torch.cuda.synchronize()
     assert observe_ekf.launches == 5
     assert kkt_schulz.launches >= 5
+    assert admm_iterations.launches >= 5       # every tick's ADMM loop
     assert torch.isfinite(trace.foot_forces_grf).all()
 
 
@@ -170,3 +188,193 @@ def test_compact_tick_launches_k1_on_the_sub_batch(card):
     assert stats == {"compact": 1}
     assert kkt_schulz.launches == 1 + settings.segments
     assert torch.isfinite(trace.foot_forces_grf).all()
+
+
+def _balanced_error(got, want, m):
+    """Per-scenario error in balanced coordinates, relative to the
+    scenario's largest balanced entry."""
+    s = torch.rsqrt(torch.diagonal(m, dim1=-2, dim2=-1))
+    unb = s[:, :, None] * s[:, None, :]
+    got_b, want_b = got / unb, want / unb
+    return (got_b - want_b).abs().amax((1, 2)) / want_b.abs().amax((1, 2))
+
+
+def _balance_kkts(batch, device, seed=2):
+    """K3's n = 12 operands: the balance QP's KKT at rho = 0.1."""
+    gen = torch.Generator().manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=gen, dtype=F32).to(device)
+    acc = torch.tensor([0.0, 0.0, 147.0, 0.0, 0.0, 0.0],
+                       device=device) + 5.0 * rn(batch, 6)
+    feet = torch.tensor([[0.17, 0.15, -0.3], [0.17, -0.15, -0.3],
+                         [-0.17, 0.15, -0.3], [-0.17, -0.15, -0.3]],
+                        device=device) + 0.02 * rn(batch, 4, 3)
+    rot_z = rotations.rot_z(0.3 * rn(batch))
+    contacts = torch.rand((batch, 4), generator=gen).to(device) > 0.3
+    bqp = qp.build_balance_qp(acc, rot_z, feet, contacts)
+    c = torch.tensor(qp.balance_constraint_matrix(), dtype=F32,
+                     device=device)
+    cost = 1.0 / bqp.hessian.abs().amax((1, 2))
+    rho_vec = torch.where(torch.isclose(bqp.lb, bqp.ub), 100.0, 0.1)
+    return (cost[:, None, None] * bqp.hessian + 1e-6 * torch.eye(
+        12, device=device) + c.T @ (rho_vec[..., None] * c)).contiguous()
+
+
+@pytest.mark.parametrize("n", [120, 12])
+@pytest.mark.parametrize("warm", [False, True])
+def test_k3_kernel_matches_plain(card, n, warm):
+    if n == 120:
+        m = kkt_schulz.kkt_build_plain(*_k1_operands(256, card))
+    else:
+        m = _balance_kkts(256, card)
+    coeffs = (1.0,) * 20
+    x0 = None
+    if warm:
+        conv = schulz_batch.schulz_inverse_batch(
+            m, coeffs=admm._scaled_schulz_coeffs(1e-6))
+        bad = (torch.arange(256, device=card) % 8 == 0)[:, None, None]
+        x0 = torch.where(bad, -conv, conv).contiguous()
+    schulz_batch.reset_launches()
+    got = schulz_batch.schulz_inverse_batch(m, x0, coeffs)
+    assert schulz_batch.launches == 1
+    want = kkt_schulz.schulz_balanced_plain(m, x0, coeffs)
+    assert torch.isfinite(got).all()
+    assert float(_balanced_error(got, want, m).max()) <= 3e-4
+    if warm:   # the empty schedule: the accepted start, else c I
+        got0 = schulz_batch.schulz_inverse_batch(m, x0, ())
+        want0 = kkt_schulz.schulz_balanced_plain(m, x0, ())
+        assert float(_balanced_error(got0, want0, m).max()) <= 3e-4
+
+
+def _k6_inputs(batch, device, seed=3):
+    """K6's operands of a warm tick, made as chip_smoke.py's dense warm
+    chain makes them (its scenario distribution and settings): a fresh
+    cold solve, then five warm ticks with the state drifting. (On the
+    worse-conditioned scenarios of ``_lazy``, with random attitude, rates
+    and stance, any float32 loop, the plain one included, strays from the
+    float64 loop by more than the 1e-3 tolerance.)"""
+    scn = chip_smoke.random_scenarios(batch, seed, device)
+    mu = scn["mu"]
+    _, warm = admm.mpc_solve_cold(
+        chip_smoke.condense(scn, scn["x0"], dense=False),
+        admm.ADMMSettings(seg_iters=40, segments=1, polish=False,
+                          schulz_l0=1e-6, schulz_hi_tail=1),
+        mu=mu, contacts=scn["contacts"], foot_pos=scn["foot_pos"])
+    settings = admm.ADMMSettings(seg_iters=15, segments=1, polish=False,
+                                 schulz_refine=1)
+    drift = torch.zeros((batch, 13), device=device)
+    drift[:, 9] = 0.001
+    drift[:, 3] = 0.0005
+    x0 = scn["x0"]
+    for _ in range(5):
+        x0 = x0 + drift
+        qps = chip_smoke.condense(scn, x0, dense=True)
+        ops, _ = admm_iterations.warm_batch_operands(qps, warm, mu, settings)
+        _, warm = admm_iterations.mpc_solve_warm_batch(qps, warm, mu,
+                                                       settings)
+    return ops
+
+
+def _plain_loop(ops, x, z, y, iters):
+    """The plain ADMM loop (``admm._admm_iterations``) on ``ops``'
+    operands, in their dtype."""
+    mu = ops["mu"][:, None]
+    return admm._admm_iterations(
+        admm._minv_solve(ops["minv"]), x, z, y, ops["qbar"], ops["lb"],
+        ops["ub"], ops["rho_vec"], iters, 1.6, 1e-6,
+        lambda v: srb.constraint_matvec(v, mu),
+        lambda v: srb.constraint_rmatvec(v, mu))
+
+
+def _assert_k6_close(got, plain, ref64):
+    """Per scenario: within 1e-3 of the plain loop and 2e-3 of the float64
+    one."""
+    assert torch.isfinite(got).all()
+    assert float((got - plain).abs().amax(-1).max()) < 1e-3
+    assert float((got.double() - ref64).abs().amax(-1).max()) <= 2e-3
+
+
+@pytest.mark.parametrize("iters", [20, 80])
+def test_k6_kernel_matches_plain(card, iters):
+    ops = _k6_inputs(256, card)
+    admm_iterations.reset_launches()
+    x, y = admm_iterations.admm_iterations(**ops, iters=iters)
+    assert admm_iterations.launches == 1
+    xw, yw = admm_iterations.admm_iterations_plain(**ops, iters=iters,
+                                                   alpha=1.6, sigma=1e-6)
+    x64, _ = admm_iterations.admm_iterations_plain(
+        **{k: v.double() for k, v in ops.items()}, iters=iters, alpha=1.6,
+        sigma=1e-6)
+    _assert_k6_close(x, xw, x64)
+    assert torch.isfinite(y).all()
+    assert bool(((y - yw).abs().amax(-1)
+                 <= 0.1 * (1.0 + yw.abs().amax(-1))).all())
+
+
+@pytest.mark.parametrize("iters", [20, 80])
+def test_k6_loop_from_a_carried_iterate_matches_plain(card, iters):
+    """``admm_loop`` (the solver's segments and warm ticks) starts from a
+    carried z, not clip(C x0): ten plain iterations in, K6 against the
+    plain loop on x, z and y."""
+    ops = _k6_inputs(256, card)
+    z0 = torch.clamp(srb.constraint_matvec(ops["x0"], ops["mu"][:, None]),
+                     ops["lb"], ops["ub"])
+    x, z, y = _plain_loop(ops, ops["x0"], z0, ops["y0"], 10)
+    admm_iterations.reset_launches()
+    got = admm_iterations.admm_loop(ops["minv"], ops["qbar"], ops["lb"],
+                                    ops["ub"], ops["rho_vec"], ops["mu"],
+                                    x, z, y, iters, 1.6, 1e-6)
+    assert admm_iterations.launches == 1
+    want = _plain_loop(ops, x, z, y, iters)
+    ops64 = {k: v.double() for k, v in ops.items()}
+    want64 = _plain_loop(ops64, x.double(), z.double(), y.double(), iters)
+    for g, w, w64 in zip(got[:2], want[:2], want64[:2]):
+        _assert_k6_close(g, w, w64)
+    assert bool(((got[2] - want[2]).abs().amax(-1)
+                 <= 0.1 * (1.0 + want[2].abs().amax(-1))).all())
+
+
+def test_new_wrappers_refuse_what_the_kernels_do_not_take(card):
+    m = _balance_kkts(4, card)
+    with pytest.raises(TypeError):
+        schulz_batch.schulz_inverse_batch(m.double())
+    with pytest.raises(ValueError):
+        schulz_batch.schulz_inverse_batch(torch.eye(28, device=card).expand(
+            4, 28, 28).contiguous())
+    ops = _k6_inputs(4, card)
+    ops["mu"] = ops["mu"].double()
+    with pytest.raises(TypeError):
+        admm_iterations.admm_iterations(**ops)
+
+
+def test_dense_paths_launch_k3_and_k6(card):
+    """A polished cold transition tick of the batched controller runs the
+    dense solve on K3; the dense warm batch tick runs K3 then K6."""
+    model = types.default_robot_model(F32, card)
+    params = types.default_ctrl_params(F32, card)
+    carry = rollout.init_carry(model, params, 8, dtype=F32, device=card)
+    schulz_batch.reset_launches()
+    _, trace = rollout.rollout_batched(carry, model, params, 2, 0.002,
+                                       settings=admm.ADMMSettings(
+                                           seg_iters=25, segments=3))
+    torch.cuda.synchronize()
+    assert schulz_batch.launches == 2 * 3     # two cold ticks, 3 segments
+    assert torch.isfinite(trace.foot_forces_grf).all()
+
+    ops = _k1_operands(8, card)
+    lazy_h = kkt_schulz.kkt_build_plain(*ops)
+    qps = srb.CondensedQP(hessian=lazy_h, gradient=torch.zeros(
+        (8, 120), device=card), lb=torch.zeros((8, 200), device=card),
+        ub=torch.full((8, 200), 180.0, device=card))
+    warm = admm.WarmState(x=torch.zeros((8, 120), device=card),
+                          y=torch.zeros((8, 200), device=card),
+                          rho=torch.full((8,), 0.1, device=card),
+                          minv=torch.eye(120, device=card).expand(
+                              8, 120, 120).contiguous())
+    schulz_batch.reset_launches()
+    admm_iterations.reset_launches()
+    sol, _ = admm_iterations.mpc_solve_warm_batch(
+        qps, warm, torch.full((8,), 0.3, device=card),
+        admm.ADMMSettings(seg_iters=15, segments=1, polish=False))
+    torch.cuda.synchronize()
+    assert schulz_batch.launches == 1 and admm_iterations.launches == 1
+    assert torch.isfinite(sol.x).all()

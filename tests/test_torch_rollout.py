@@ -127,8 +127,9 @@ def test_trot_rollout_walks_f32():
 
 
 def test_port_imports_no_jax():
-    """In a fresh interpreter, one CPU tick of the port loads neither JAX
-    nor the JAX package."""
+    """In a fresh interpreter, one CPU tick of the port (batched, and
+    per scenario with the polished dense solve) loads neither JAX nor the
+    JAX package."""
     code = (
         "import sys, torch\n"
         "from go1_qp_mpc_controller_torch.envs import rollout\n"
@@ -137,8 +138,10 @@ def test_port_imports_no_jax():
         "m = types.default_robot_model(device='cpu')\n"
         "p = types.default_ctrl_params(device='cpu')\n"
         "c = rollout.init_carry(m, p, 2, device='cpu')\n"
+        "from go1_qp_mpc_controller_torch.ops import admm_iterations\n"
         "s = admm.ADMMSettings(polish=False, schulz_impl='auto')\n"
         "rollout.rollout_batched(c, m, p, 1, 0.002, settings=s)\n"
+        "rollout.rollout(c, m, p, 1, 0.002)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('go1_qp_mpc_controller_tpu')]\n"
         "assert not bad, bad\n"
