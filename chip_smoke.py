@@ -16,7 +16,18 @@ just after it:
 - one robot (``envs.rollout.rollout``, batch 1) trotting with the EKF and
   polished cold solves (K1, K2, K3, K6), then standing on the balance QP
   (K3);
-- the batched tick with the polished cold settings (K1, K2, K3, K6).
+- the batched tick with the polished cold settings (K1, K2, K3, K6);
+- K5's own entry (``ops/schulz_balanced.py``; in the JAX package only
+  tests call it);
+- the real-time host runtime (``main.py loop``): ``ControlLoop.run_dual``
+  against the simulated 1 kHz feed on the card, with the estimator thread
+  (K4 once a sensor frame) and a scripted joystick session, on
+  ``hardware_qp`` (the balance QP, K3 at n = 12) and ``gazebo_mpc`` (K1,
+  K3, K6).
+
+K4 (the EKF innovation inverse) is also held against its plain version at
+batch 4096 on its own, like K1, K2 and K3, and at batch 1 on the live
+filter's innovation matrix after each runtime run.
 
 Each phase prints its lines; the last line is ``{"ok": true, "device":
 {...}}`` and is printed only when every phase passed.
@@ -78,6 +89,17 @@ POLISHED = dict(seg_iters=25, segments=3)
 # 0.1 (1 + max|y_plain|)
 K6_TOL = 1e-3
 K6_F64_TOL = 2e-3
+# K4 on innovation matrices S = C P-bar C' + R, per matrix: within
+# K4_S_TOL x max|plain| of the plain version and x max|X| of the float64
+# schedule, and max|S X - I| < K4_S_RES_TOL. At P near its 3 I init their
+# balanced condition numbers reach ~3e4: any float32 schedule, the plain one
+# included, lands ~1.3e-3 x max|X| from the float64 one and leaves
+# max|S X - I| ~2e-3 (on an H100: kernel 1.322e-3 and 1.803e-3, plain
+# 1.273e-3 and 2.023e-3), so two float32 orders of summation differ by
+# that much and the JAX test's 5e-4 / 1e-3 (which the spread-diagonal set
+# meets) cannot hold there
+K4_S_TOL = 2.5e-3
+K4_S_RES_TOL = 4e-3
 
 
 def _fail(msg):
@@ -87,12 +109,8 @@ def _fail(msg):
 
 def kernel_modules():
     """{kernel record name: its wrapper module (launch counter)}."""
-    from go1_qp_mpc_controller_torch.ops import (admm_iterations,
-                                                 kkt_schulz, observe_ekf,
-                                                 schulz_batch)
-    return {"kkt_schulz": kkt_schulz, "observe_ekf": observe_ekf,
-            "schulz_batch": schulz_batch,
-            "admm_iterations": admm_iterations}
+    from go1_qp_mpc_controller_torch.ops import _build
+    return _build.wrappers()
 
 
 def reset_counts():
@@ -308,11 +326,16 @@ def k2_phase(batch, gen, device, reps):
     import torch
     from go1_qp_mpc_controller_torch.ops import observe_ekf
 
+    from go1_qp_mpc_controller_torch.ops import schulz_lanes
+
     args = random_ekf_inputs(batch, gen, device)
     got = observe_ekf.observe_ekf(*args)
+    k4_before = schulz_lanes.launches
     want = observe_ekf.observe_ekf_plain(*args)
     torch.cuda.synchronize()
-    worst, max_err, passed = 0.0, 0.0, True
+    # the plain version stays plain: its innovation inverse is not K4
+    plain_k4 = schulz_lanes.launches - k4_before
+    worst, max_err, passed = 0.0, 0.0, plain_k4 == 0
     for name, _ in observe_ekf.OUTPUTS:
         tol = 5e-4 if name in ("x", "P") else 1e-5
         w = want[name].float()
@@ -338,7 +361,8 @@ def k2_phase(batch, gen, device, reps):
             f"{max_err:.3e} (worst err/tolerance {worst:.3f}; tolerance "
             f"5e-4 on x, P and 1e-5 elsewhere, x max(1, max|plain|)), "
             f"kernel_ms {kernel_ms:.4f}, plain_ms {plain_ms:.4f}, "
-            f"bound_ms {bound_ms:.4f} ({bound_by}) "
+            f"bound_ms {bound_ms:.4f} ({bound_by}); K4 launches in the "
+            f"plain version {plain_k4} (must be 0) "
             f"{'PASS' if passed else 'FAIL'}")
     record = {
         "name": "observe_ekf", "route": "cuda",
@@ -1089,6 +1113,355 @@ def polished_batched_phase(batch, seed, device, card):
     return counts, lines, all(checks.values())
 
 
+def spread_spd(batch, n, seed):
+    """Seeded random SPD matrices with diagonals spread over e^-4..e^4, so
+    the Jacobi balance does real work (tests/test_pallas_admm.py:198-204),
+    made with numpy."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(batch, n, n)).astype(np.float32)
+    spd = a @ np.swapaxes(a, -1, -2) / n + 0.2 * np.eye(n, dtype=np.float32)
+    d = np.exp(rng.uniform(-2, 2, size=(batch, n))).astype(np.float32)
+    return spd * d[:, :, None] * d[:, None, :]
+
+
+def k4_check(m, coeffs, tol, res_tol):
+    """K4 against its plain version on the (B, 28, 28) matrices ``m``: per
+    matrix within ``tol`` x max|plain| of the plain version and within
+    ``tol`` x max|X| of the same schedule in float64, and max|S X - I| <
+    ``res_tol``. Returns (readings, passed)."""
+    import torch
+    from go1_qp_mpc_controller_torch.ops import schulz_lanes
+
+    got = schulz_lanes.schulz_inverse_lanes(m, coeffs)
+    want = schulz_lanes.schulz_inverse_lanes_plain(m, coeffs)
+    ref = schulz_lanes.schulz_inverse_lanes_plain(m.double(), coeffs)
+    torch.cuda.synchronize()
+    eye = torch.eye(m.shape[-1], dtype=torch.float64, device=m.device)
+    resid = lambda x: (m.double() @ x.double() - eye).abs()
+    per_matrix = lambda x, r: float(((x.double() - r).abs().amax((1, 2))
+                                     / r.abs().amax((1, 2))).max())
+    s = torch.rsqrt(torch.diagonal(m.double(), dim1=-2, dim2=-1))
+    cond = torch.linalg.cond(m.double() * s[:, :, None] * s[:, None, :])
+    r = dict(err=float((got - want).abs().max()),
+             rel_plain=per_matrix(got, want.double()),
+             rel_f64=per_matrix(got, ref), plain_rel_f64=per_matrix(want, ref),
+             res=float(resid(got).max()), res_plain=float(resid(want).max()),
+             res_f64=float(resid(ref).max()),
+             res_inf=float(resid(got).sum(-1).amax()),
+             cond_median=float(cond.median()), cond_max=float(cond.max()))
+    passed = (bool(torch.isfinite(got).all()) and r["rel_plain"] <= tol
+              and r["rel_f64"] <= tol and r["res"] < res_tol)
+    return r, passed
+
+
+def k4_line(name, r, tol, res_tol):
+    return (f"K4 {name}: max_abs_err {r['err']:.3e}, worst per-matrix error "
+            f"{r['rel_plain']:.3e} x max|plain|, against the float64 schedule "
+            f"{r['rel_f64']:.3e} x max|X| (plain {r['plain_rel_f64']:.3e}; "
+            f"tolerance {tol:g} on both); max|S X - I| {r['res']:.3e} (plain "
+            f"{r['res_plain']:.3e}, float64 schedule {r['res_f64']:.3e}; "
+            f"tolerance {res_tol:g}), ||S X - I||_inf {r['res_inf']:.3e}; "
+            f"balanced condition number median {r['cond_median']:.3e}, max "
+            f"{r['cond_max']:.3e}")
+
+
+def k4_phase(batch, gen, seed, device, reps):
+    """K4 against its plain version at ``batch`` on two input sets: the
+    innovation matrices S = C P-bar C' + R of the K2 phase's EKF input
+    distribution, and spread-diagonal random SPD matrices. Gates per
+    matrix (``k4_check``): on the spread set the tolerances of
+    tests/test_pallas_admm.py:217-219 (5e-4 x max|plain|, max|S X - I| <
+    1e-3); on the innovation set ``K4_S_TOL`` and ``K4_S_RES_TOL``. Returns
+    (record, lines, passed)."""
+    import torch
+    from go1_qp_mpc_controller_torch.models import types
+    from go1_qp_mpc_controller_torch.ops import admm, ekf, schulz_lanes
+    from go1_qp_mpc_controller_torch.runtime import estimator
+
+    # the innovation matrices the estimator's frame hands K4
+    predict = estimator.make_estimator_predict(
+        types.default_robot_model(torch.float32, device))
+    pred = predict(*random_ekf_inputs(batch, gen, device)[:10])
+    sets = {
+        "innovation": (pred.s_mat.contiguous(), K4_S_TOL, K4_S_RES_TOL),
+        "spread_spd": (torch.tensor(spread_spd(batch, 28, seed),
+                                    device=device), 5e-4, 1e-3)}
+    coeffs = admm._scaled_schulz_coeffs(ekf.SINV_L0)
+    n = 28
+    # 2 products of 2 n^3 a step after the folded first one; the matrix
+    # read and the inverse written once
+    bound_ms, bound_by = bound(batch * 2 * (len(coeffs) - 1) * 2.0 * n ** 3,
+                               2 * batch * n * n * F32)
+    lines, records = [], {}
+    for name, (m, tol, res_tol) in sets.items():
+        r, passed = k4_check(m, coeffs, tol, res_tol)
+        kernel_ms = cuda_ms(lambda: schulz_lanes.schulz_inverse_lanes(
+            m, coeffs), reps)
+        plain_ms = cuda_ms(lambda: schulz_lanes.schulz_inverse_lanes_plain(
+            m, coeffs), reps)
+        library_ms = cuda_ms(lambda: torch.linalg.inv(m), reps)
+        lines.append(
+            f"{k4_line(name, r, tol, res_tol)}; batch {batch}, n {n}, "
+            f"{len(coeffs)} steps (the first folded); kernel_ms "
+            f"{kernel_ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms "
+            f"{bound_ms:.4f} ({bound_by}), library_ms {library_ms:.4f} "
+            f"(torch.linalg.inv of the same matrices) "
+            f"{'PASS' if passed else 'FAIL'}")
+        records[name] = dict(err=r["err"], kernel_ms=kernel_ms,
+                             plain_ms=plain_ms, library_ms=library_ms,
+                             passed=passed)
+    main = records["innovation"]
+    record = {
+        "name": "schulz_lanes", "route": "cuda",
+        "source": "go1_qp_mpc_controller_torch/csrc/schulz_lanes.cu",
+        "replaces": "go1_qp_mpc_controller_tpu/ops/pallas_admm.py:603",
+        "max_abs_err": max(r["err"] for r in records.values()),
+        "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": main["library_ms"]}
+    return record, lines, all(r["passed"] for r in records.values())
+
+
+def k4_live_check(est, bridge):
+    """K4 against its plain version at the shape the runtime gives it: the
+    (1, 28, 28) innovation matrix of the live filter (the estimator
+    thread's last estimate and the feed's last frame, through the
+    estimator's predict graph), with the innovation set's tolerances.
+    Returns (line, passed)."""
+    import numpy as np
+    from go1_qp_mpc_controller_torch.ops import admm, ekf
+
+    _, s = bridge.read_sensors()
+    x, p, _ = est.snapshot()
+    frame = est._frame(np.concatenate([
+        s["quat"], s["acc"], s["gyro"], s["joint_pos"], s["joint_vel"],
+        s["foot_force"]]), est.period)
+    s_mat = est._predict(x, p, frame, est._mode(est.movement_mode)).s_mat
+    r, passed = k4_check(s_mat.clone(), admm._scaled_schulz_coeffs(
+        ekf.SINV_L0), K4_S_TOL, K4_S_RES_TOL)
+    return (f"{k4_line('live frame (1, 28, 28)', r, K4_S_TOL, K4_S_RES_TOL)} "
+            f"{'PASS' if passed else 'FAIL'}"), passed
+
+
+def k5_phase(device, reps):
+    """K5 through its own entry, ``schulz_balanced.schulz_balanced``, at
+    n = 120 on the cases of tests/test_pallas_admm.py:126-156 (cold 20
+    steps, warm accept with 4 steps, warm reject with 20, on the balanced
+    a a' / n + 3 I), the empty schedule from the accepted start, and cold
+    20 steps on three more seeded random balanced SPD matrices. K5 has no
+    path in the JAX package (only its tests call it), so the launches of
+    these entry calls are its path, "k5_entry" (the launch counters are
+    zeroed before them and read after; the plain versions and the timing
+    launches come after the read). Gates: within 5e-6 of the plain version
+    (the JAX test's tolerance), max|M_b X - I| < 1e-5 on the cold case.
+    Returns (counts, record, lines, passed)."""
+    import numpy as np
+    import torch
+    from go1_qp_mpc_controller_torch.ops import schulz_balanced
+
+    n = 120
+
+    def balanced(seed):
+        a = np.random.default_rng(seed).normal(size=(n, n))
+        m = a @ a.T / n + 3.0 * np.eye(n)
+        s = 1.0 / np.sqrt(np.diag(m))
+        return torch.tensor(m * s[:, None] * s[None, :], dtype=torch.float32,
+                            device=device)
+
+    mb = balanced(0)
+    reset_counts()
+    cold = schulz_balanced.schulz_balanced(mb, 20)
+    x0 = (cold * (1.0 + 1e-3)).contiguous()
+    garbage = torch.full((n, n), 5.0, device=device)
+    cases = {"cold 20 steps": (mb, 20, None),
+             "warm accept 4 steps": (mb, 4, x0),
+             "warm reject 20 steps": (mb, 20, garbage),
+             "warm accept 0 steps": (mb, 0, x0)}
+    cases.update({f"cold 20 steps, seed {s}": (balanced(s), 20, None)
+                  for s in (1, 2, 3)})
+    got = {"cold 20 steps": cold}
+    got.update({name: schulz_balanced.schulz_balanced(m, it, x)
+                for name, (m, it, x) in cases.items()
+                if name != "cold 20 steps"})
+    counts = read_counts()
+
+    eye = torch.eye(n, device=device)
+    lines, errs, passed = [], {}, counts["schulz_balanced"] == len(cases)
+    for name, (m, it, x) in cases.items():
+        want = schulz_balanced.schulz_balanced_plain(m, it, x)
+        torch.cuda.synchronize()
+        err = float((got[name] - want).abs().max())
+        ok = bool(torch.isfinite(got[name]).all()) and err <= 5e-6
+        line = (f"K5 {name}: max_abs_err {err:.3e} (tolerance 5e-6)")
+        if name == "cold 20 steps":
+            resid = float((m @ got[name] - eye).abs().max())
+            ok &= resid < 1e-5
+            line += f", max|M_b X - I| {resid:.3e} (tolerance 1e-5)"
+        lines.append(f"{line} {'PASS' if ok else 'FAIL'}")
+        errs[name] = err
+        passed &= ok
+    kernel_ms = cuda_ms(lambda: schulz_balanced.schulz_balanced(mb, 20),
+                        reps)
+    plain_ms = cuda_ms(lambda: schulz_balanced.schulz_balanced_plain(mb, 20),
+                       reps)
+    library_ms = cuda_ms(lambda: torch.linalg.inv(mb), reps)
+    # cold 20 steps: 38 products of 2 n^3 (the first step folded); M_b read
+    # and X written once. One block on one SM: the launch and the chain of
+    # 38 dependent products, not this bound, set its time
+    bound_ms, bound_by = bound(38 * 2.0 * n ** 3, 2 * n * n * F32)
+    lines.append(
+        f"K5 timing (cold 20 steps, one matrix, latency bound): kernel_ms "
+        f"{kernel_ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms {bound_ms:.6f} "
+        f"({bound_by}), library_ms {library_ms:.4f} (torch.linalg.inv of "
+        f"M_b); entry launches {counts['schulz_balanced']} for "
+        f"{len(cases)} calls {'PASS' if passed else 'FAIL'}")
+    record = {
+        "name": "schulz_balanced", "route": "cuda",
+        "source": "go1_qp_mpc_controller_torch/csrc/schulz_balanced.cu",
+        "replaces": "go1_qp_mpc_controller_tpu/ops/pallas_admm.py:694",
+        "max_abs_err": max(errs.values()), "ms": kernel_ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms}
+    return counts, record, lines, passed
+
+
+# the runtime path: main.py loop's dual-cadence loop against the simulated
+# feed with the estimator thread and a scripted joystick session, per preset
+# {preset: (time scale, wall seconds at most)}: wall period = sim period /
+# time scale. The four threads share one GIL and the GRF solve is hundreds
+# of host dispatches: ~67 ms alone for the balance QP and ~25 ms for the
+# MPC on an H100 host, the graph-replayed feeder, estimator and fast steps
+# ~3 ms more per 2 ms of sim time (scripts/runtime_gil_probe.py). At 0.02
+# (a 100 ms GRF period) the MPC keeps up, but the balance QP does not: its
+# solve took ~137 ms against the 100 ms period and overran every tick, so
+# hardware_qp runs at 0.01 (a 200 ms period), where it took ~84 ms and
+# overran none of 76 ticks. At 0.05 the MPC solve overran its 40 ms period
+# and the starved stand diverged (scripts/runtime_ladder.py).
+# The runs are long enough for ~75 solves before the LB exit at three
+# quarters of the run (the gates ask for more than 50).
+RUNTIME = {"hardware_qp": (0.01, 20.0), "gazebo_mpc": (0.02, 10.0)}
+# the GRF loop keeps up: at most this share of its ticks overran
+GRF_OVERRUN_SHARE = 0.1
+RUNTIME_DT = 0.002            # the fast and GRF loops' sim period
+# the joystick session of main.py --joy-demo (stand -> walk -> stand -> LB
+# exit), as fractions of the fast ticks the run can hold: A + stick
+# forward, A again, LB
+JOY_EVENTS = (0.25, 0.5, 0.75)
+TAU_CEILING = 35.55           # the bridge's largest joint-class ceiling
+
+
+def runtime_phase(preset, device, card, time_scale=None, duration=None):
+    """``ControlLoop.run_dual`` on ``preset`` against a ``SimFeeder`` on
+    the card, with the estimator thread (``estimate_in_feed``) and a
+    scripted joystick session, at ``time_scale`` for at most ``duration``
+    wall seconds (defaults: ``RUNTIME[preset]``).
+    The launch counters are zeroed after the warm-up (which makes every
+    first launch and the estimator's first frame) and read after the loop.
+    Gates: the JAX tests' invariants (tests/test_joystick_loop.py,
+    test_dual_loop.py, test_estimator_cadence.py), the GRF loop keeping up
+    (``GRF_OVERRUN_SHARE``), and K4 against its plain version on the live
+    filter's innovation matrix (``k4_live_check``, after the counts were
+    read). Returns (counts, lines, passed)."""
+    import numpy as np
+    import torch
+    from go1_qp_mpc_controller_torch.config import presets
+    from go1_qp_mpc_controller_torch.models import types
+    from go1_qp_mpc_controller_torch.runtime import feeder as feeder_lib
+    from go1_qp_mpc_controller_torch.runtime import joystick
+    from go1_qp_mpc_controller_torch.runtime import loop as loop_lib
+
+    model, params, static = presets.load_preset(preset, torch.float32,
+                                                device=device)
+    time_scale = time_scale or RUNTIME[preset][0]
+    duration = duration or RUNTIME[preset][1]
+    ticks = int(duration * time_scale / RUNTIME_DT)
+
+    def sample(velx=0.0, a=False, lb=False):
+        ax = np.zeros(8, np.float32)
+        ax[4] = velx
+        bt = np.zeros(5, np.int32)
+        bt[0], bt[4] = int(a), int(lb)
+        return ax, bt
+
+    walk, stand, leave = (int(f * ticks) for f in JOY_EVENTS)
+    source = joystick.ScriptedJoySource([
+        (walk,) + sample(velx=0.3, a=True), (stand,) + sample(a=True),
+        (leave,) + sample(lb=True)])
+    cl = loop_lib.ControlLoop(
+        model, params, static, types.init_ctrl_state(model, 1, device=device),
+        main_period_s=RUNTIME_DT, grf_period_s=RUNTIME_DT,
+        power_level=static.power_level, time_scale=time_scale,
+        command_source=source, estimate_in_feed=True, sensor_period_s=0.001)
+    feeder = feeder_lib.SimFeeder(cl.bridge, model, params, height=0.3,
+                                  period_s=0.001, time_scale=time_scale,
+                                  device=device)
+    try:
+        cl.state = feeder.initial_ctrl_state()
+        cl.warmup(dual=True)
+        reset_counts()
+        feeder.start(duration_s=duration + 30.0)
+        t0 = time.perf_counter()
+        n = cl.run_dual(duration_s=duration)
+        wall = time.perf_counter() - t0
+        feeder.stop()
+        counts = read_counts()
+        if feeder.error is not None:
+            raise RuntimeError("the sensor feed failed") from feeder.error
+        # after the path's counts were read: K4 on the live filter
+        live_line, live_ok = k4_live_check(cl.est_thread, cl.bridge)
+        root = feeder.sim_root_pos
+        est_root = cl.state.root_pos[0].cpu().double().numpy()
+        _, cmd = cl.bridge.read_command()
+    finally:
+        feeder.stop()
+        cl.close()
+    est = cl.est_thread
+    modes = [r["value"] for r in cl.metrics.records("movement_mode")]
+    tau = float(np.abs(cmd["tau"]).max())
+    ceiling = (static.power_level / 10.0 if static.environment == "hardware"
+               else 1.0) * TAU_CEILING
+    summ = lambda name: cl.metrics.summary(name)
+    pct = lambda name: ("p50 {p50:.3f} ms, p99 {p99:.3f} ms".format(
+        **summ(name)) if summ(name) else "none")
+    overruns = {k: summ(k).get("max") for k in ("overruns", "grf_overruns")}
+    grf_overruns = overruns["grf_overruns"]
+    walked = 1.0 in modes
+    checks = {
+        "k4_launches==estimator_frames": counts["schulz_lanes"] == est.frames,
+        "estimator_frames>=0.5*fast_ticks": est.frames >= 0.5 * cl.fast_ticks,
+        "plant_z_within_0.06": bool(abs(root[2] - 0.3) < 0.06),
+        "est_root_within_0.05": bool(np.linalg.norm(est_root - root) < 0.05),
+        "finite": bool(np.isfinite(cmd["tau"]).all()
+                       and np.isfinite(root).all()),
+        "tau_in_(0.5,ceiling]": 0.5 < tau <= ceiling + 1e-9,
+        "grf_ticks>50": cl.grf_ticks > 50,
+        f"grf_overruns<={GRF_OVERRUN_SHARE}*grf_ticks":
+            grf_overruns is not None
+            and grf_overruns <= GRF_OVERRUN_SHARE * cl.grf_ticks,
+        "k4_live_frame": live_ok,
+        "walked": walked,
+        "stood_after_walking": walked and 0.0 in modes[modes.index(1.0):],
+        "lb_exit_ended_the_loop": wall < duration,
+        "no_k2": counts["observe_ekf"] == 0}
+    lines = [
+        f"runtime {preset}: ControlLoop.run_dual + SimFeeder + estimator "
+        f"thread + joystick session (walk at fast tick {walk}, stand at "
+        f"{stand}, LB at {leave} of ~{ticks}) at time_scale "
+        f"{time_scale} on {card}: {wall:.3f} s wall, {n} "
+        f"iterations, fast ticks {cl.fast_ticks}, GRF ticks {cl.grf_ticks}, "
+        f"estimator frames {est.frames}, feeder ticks {feeder.ticks}; "
+        f"cycle_ms {pct('cycle_ms')}; grf_ms {pct('grf_ms')}; estimator "
+        f"frame {pct('est_frame_ms')}; overruns {json.dumps(overruns)}",
+        f"runtime {preset}: plant root {np.round(root, 4).tolist()}, "
+        f"estimated root {np.round(est_root, 4).tolist()}, final max|tau| "
+        f"{tau:.3f} (ceiling {ceiling:.3f}); launches {json.dumps(counts)}",
+        f"runtime {preset}: {live_line}",
+        f"runtime {preset} checks {json.dumps(checks)} "
+        f"{'PASS' if all(checks.values()) else 'FAIL'}"]
+    return counts, lines, all(checks.values())
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1142,6 +1515,9 @@ def main(argv=None):
         ("K3", lambda: k3_phase(BATCH,
                                 torch.Generator().manual_seed(args.seed + 2),
                                 device, REPS)),
+        ("K4", lambda: k4_phase(BATCH,
+                                torch.Generator().manual_seed(args.seed + 5),
+                                args.seed + 5, device, REPS)),
     ]
     for name, phase in phases:
         try:
@@ -1176,9 +1552,20 @@ def main(argv=None):
             BATCH, args.seed + 4, device, card)
         return {"polished_batched": counts}, lines, passed
 
+    def k5_entry():
+        counts, k5_record, lines, passed = k5_phase(device, REPS)
+        records.append(k5_record)
+        return {"k5_entry": counts}, lines, passed
+
+    def runtime(preset):
+        counts, lines, passed = runtime_phase(preset, device, card)
+        return {f"runtime_{preset}": counts}, lines, passed
+
     paths = [("main path", main_path), ("dense chain", dense_chain),
              ("one robot", lambda: single_robot_phase(device, card)),
-             ("polished batched", polished)]
+             ("polished batched", polished), ("K5", k5_entry)]
+    paths += [(f"runtime {preset}", lambda p=preset: runtime(p))
+              for preset in RUNTIME]
     for name, path in paths:
         try:
             counts, lines, passed = path()

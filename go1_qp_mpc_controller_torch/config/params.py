@@ -5,6 +5,16 @@ The port's own copy of the values in the JAX package's ``config/params.py``
 ported modules read are kept.
 """
 
+# --- joystick command limits (A1Params.h:16-23) --------------------------
+JOY_CMD_BODY_HEIGHT_MAX = 0.32  # m
+JOY_CMD_BODY_HEIGHT_MIN = 0.1   # m
+JOY_CMD_BODY_HEIGHT_VEL = 0.04  # m/s
+JOY_CMD_VELX_MAX = 0.6          # m/s
+JOY_CMD_VELY_MAX = 0.3          # m/s
+JOY_CMD_YAW_MAX = 0.8           # rad
+JOY_CMD_PITCH_MAX = 0.4         # rad
+JOY_CMD_ROLL_MAX = 0.4          # rad
+
 # --- MPC problem dimensions (A1Params.h:26-28) ---------------------------
 PLAN_HORIZON = 10               # MPC lookahead steps
 MPC_STATE_DIM = 13              # (rpy, pos, omega, vel, gravity)
@@ -24,6 +34,14 @@ FOOT_SWING_CLEARANCE2 = 0.4
 # --- Raibert foothold delta clamp (m) (A1Params.h:44-45) -----------------
 FOOT_DELTA_X_LIMIT = 0.1
 FOOT_DELTA_Y_LIMIT = 0.1
+
+# --- joint position limits (rad) per (hip, thigh, calf), the terminal-state
+# check (GazeboA1ROS.h:175-179) -------------------------------------------
+JOINT_POS_LIMITS = (
+    (-1.047, 1.047),    # hip
+    (-0.663, 2.966),    # thigh
+    (-2.721, -0.837),   # calf
+)
 
 # --- MPC QP constants (ConvexMpc.cpp:8, :223-224) ------------------------
 MPC_MU = 0.3                    # friction coefficient

@@ -1,7 +1,8 @@
-// The Schulz body shared by K1 (csrc/kkt_schulz.cu) and K3
-// (csrc/schulz_batch.cu): Jacobi balance, basin-safeguarded (scaled)
-// Newton-Schulz schedule and unbalance of one N x N matrix, run by one
-// thread block. Counterpart of the TPU body
+// The Schulz body shared by K1 (csrc/kkt_schulz.cu), K3
+// (csrc/schulz_batch.cu), K4 (csrc/schulz_lanes.cu, N = 28) and K5
+// (csrc/schulz_balanced.cu, without the balance): Jacobi balance,
+// basin-safeguarded (scaled) Newton-Schulz schedule and unbalance of one
+// N x N matrix, run by one thread block. Counterpart of the TPU body
 // go1_qp_mpc_controller_tpu/ops/pallas_admm.py::_schulz_batch_body; the
 // plain PyTorch version is ops/kkt_schulz.py::schulz_balanced_plain.
 //
@@ -163,7 +164,9 @@ __device__ __forceinline__ float* input_slot(float* smem) {
 // On entry input_slot(smem) holds the unbalanced M of this block's
 // scenario (visible to every thread). Computes the basin-safeguarded
 // (scaled) Newton-Schulz inverse and writes the unbalanced S X S to
-// `out`:
+// `out`. With BALANCE = false (K5, csrc/schulz_balanced.cu) the input is
+// already balanced, M_b = M and X0_b = X0, and the balanced X is written:
+// the balance and the unbalance are compiled out.
 //   - M_b = S M S with S = diag(M)^-1/2, c0 = 1 / (1.05 ||M_b||_inf);
 //   - with a warm start x0 (unbalanced, or null): the basin test on
 //     M_b X0_b (min diagonal > 1e-4 and max absolute row sum < 3); an
@@ -173,7 +176,7 @@ __device__ __forceinline__ float* input_slot(float* smem) {
 //     analytically;
 //   - then the rest of the schedule; scenarios that accepted their warm
 //     start run plain Newton (a = 1).
-template <int N, int TD>
+template <int N, int TD, bool BALANCE = true>
 __device__ __forceinline__ void balanced_schulz(
         float* smem, const float* __restrict__ x0, const Schedule& sched,
         int n_coeffs, float* __restrict__ out) {
@@ -191,12 +194,19 @@ __device__ __forceinline__ void balanced_schulz(
     const bool warm = x0 != nullptr;
 
     // Jacobi balance M_b = M * s_i s_j and its inf-norm
-    if (tid < N) sv[tid] = rsqrtf(tm[tid * N + tid]);
-    __syncthreads();
+    if constexpr (BALANCE) {
+        if (tid < N) sv[tid] = rsqrtf(tm[tid * N + tid]);
+        __syncthreads();
+    }
     for (int idx = tid; idx < N * N; idx += NTHREADS) {
-        const int i = idx / N, j = idx % N;
-        mb[idx] = tm[idx] * (sv[i] * sv[j]);
-        if (warm) xs[idx] = x0[idx] / (sv[i] * sv[j]);
+        if constexpr (BALANCE) {
+            const int i = idx / N, j = idx % N;
+            mb[idx] = tm[idx] * (sv[i] * sv[j]);
+            if (warm) xs[idx] = x0[idx] / (sv[i] * sv[j]);
+        } else {
+            mb[idx] = tm[idx];
+            if (warm) xs[idx] = x0[idx];
+        }
     }
     __syncthreads();
     float row = 0.0f;
@@ -276,8 +286,12 @@ __device__ __forceinline__ void balanced_schulz(
 
     // unbalance: M^-1 = S X S
     for (int idx = tid; idx < N * N; idx += NTHREADS) {
-        const int i = idx / N, j = idx % N;
-        out[idx] = xs[idx] * (sv[i] * sv[j]);
+        if constexpr (BALANCE) {
+            const int i = idx / N, j = idx % N;
+            out[idx] = xs[idx] * (sv[i] * sv[j]);
+        } else {
+            out[idx] = xs[idx];
+        }
     }
 }
 

@@ -176,6 +176,39 @@ def step(sim, model, joint_torques, contacts, swing_targets_rel, dt,
     return new_sim, torch.clamp(f_world[..., 2], min=0.0)
 
 
+def step_pd(sim, model, cmd_q, kp, kd, tau_ff, contacts, swing_targets_rel,
+            dt, ground_coef=None, n_substeps=4):
+    """Advance the plant by ``dt`` under joint-level position-PD commands.
+
+    The motor-side PD loop the RL controller commands instead of torques
+    (Go1RLController.cpp:149-166 sends q + kp / kd with tau = 0; the motor
+    firmware closes tau = kp (q_d - q) - kd q_dot + tau_ff). The command is
+    held over ``n_substeps`` plant steps of dt / n_substeps: one explicit
+    step at the RL action period is unstable (the one-step-lagged
+    finite-difference q_dot turns kd into anti-damping on the pitch mode).
+
+    Args:
+      cmd_q, kp, kd, tau_ff: (B, 12) position targets, gains and
+        feedforward torques.
+      contacts, swing_targets_rel, ground_coef: as in :func:`step`.
+
+    Returns:
+      (new SimState, (B, 4) applied stance normal forces of the last
+      substep).
+    """
+    sub_dt = dt / n_substeps
+    batch = sim.root_pos.shape[0]
+    fz = torch.zeros_like(sim.foot_pos_world[..., 2])
+    for _ in range(n_substeps):
+        q = kinematics.inverse_kinematics(
+            _feet_body(sim), model.leg_geometry.rho_fix).reshape(batch, 12)
+        q_dot = (q - sim.prev_joint_pos) / sub_dt
+        tau = kp * (cmd_q - q) - kd * q_dot + tau_ff
+        sim, fz = step(sim, model, tau, contacts, swing_targets_rel, sub_dt,
+                       ground_coef=ground_coef)
+    return sim, fz
+
+
 def _rot_to_quat(r):
     """(B, 3, 3) rotation -> (B, 4) quaternion (w, x, y, z), branchless."""
     w = 0.5 * torch.sqrt(torch.clamp(

@@ -1,0 +1,224 @@
+"""Process entry point: preset-driven controller runs of the PyTorch port.
+
+Port of the JAX package's ``main.py`` (the reference's
+Main{Gazebo,Hardware,Isaac}.cpp executables and roslaunch preset
+selection, launch/a1_ctrl.launch:1-8):
+
+  python -m go1_qp_mpc_controller_torch.main --preset gazebo_mpc rollout
+  python -m go1_qp_mpc_controller_torch.main --preset gazebo_mpc loop \
+      --duration 5 --time-scale 0.1 --estimate-in-feed
+
+Modes:
+  rollout - closed-loop trot of one robot on the SRB simulator (the Gazebo
+            stand-in), printing tracking statistics.
+  loop    - the real-time host loop against the C++ bridge, fed by the
+            simulated 1 kHz sensor feed (or an external feed with
+            --no-feeder).
+
+Both run on the CUDA card unless ``--device cpu`` is given. Not ported yet:
+the ``sweep``, ``rl`` and ``rl-loop`` modes (ROADMAP items 13 and 14).
+"""
+
+import argparse
+import json
+
+
+def cmd_rollout(args, model, params, static, device):
+    import numpy as np
+    import torch
+
+    from go1_qp_mpc_controller_torch.ctrl import controller
+    from go1_qp_mpc_controller_torch.envs import rollout
+    from go1_qp_mpc_controller_torch.ops import admm
+
+    if args.trace or args.plot:
+        raise NotImplementedError("--trace / --plot (utils/viz.py) are not "
+                                  "ported yet (ROADMAP queue 1, item 16)")
+    if args.horizon is not None and args.horizon != 10:
+        raise NotImplementedError(f"--horizon {args.horizon} (the stagewise "
+                                  "solver) is not ported yet (ROADMAP queue "
+                                  "1, item 12)")
+    f32 = torch.float32
+    carry = rollout.init_carry(model, params, 1, height=args.height,
+                               dtype=f32, device=device)
+
+    def command(i, ctrl):
+        walk = i >= 100
+        vel = torch.zeros_like(ctrl.root_lin_vel_d)
+        if walk:
+            vel[:, 0], vel[:, 1] = args.vx, args.vy
+        return ctrl._replace(
+            movement_mode=torch.full_like(ctrl.movement_mode, int(walk)),
+            root_lin_vel_d=vel)
+
+    solver = controller.MPC if static.solver == "mpc" else controller.QP
+    if args.horizon is not None:
+        settings = admm.ADMMSettings(seg_iters=60, segments=3, polish=False)
+        warm_settings = admm.ADMMSettings(seg_iters=25, segments=1,
+                                          polish=False)
+    else:
+        settings = admm.ADMMSettings(seg_iters=25, segments=3)
+        warm_settings = controller.WARM_SETTINGS
+    _, trace = rollout.rollout(
+        carry, model, params, args.steps, args.dt, solver_type=solver,
+        settings=settings, warm_settings=warm_settings, command_fn=command,
+        estimate=not args.no_ekf,
+        use_terrain_adapt=static.use_terrain_adapt, horizon=args.horizon)
+    pos = trace.root_pos[:, 0].cpu().numpy()
+    vel_tr = trace.root_lin_vel[:, 0].cpu().numpy()
+    euler = trace.root_euler[:, 0].cpu().numpy()
+    print(json.dumps({
+        "final_pos": pos[-1].round(4).tolist(),
+        "mean_vx": round(float(vel_tr[args.steps // 3:, 0].mean()), 4),
+        "height_range": [round(float(pos[100:, 2].min()), 4),
+                         round(float(pos[100:, 2].max()), 4)],
+        "max_tilt_rad": round(float(np.abs(euler[100:, :2]).max()), 4),
+    }))
+
+
+def joy_demo_source(duration, dt):
+    """The scripted operator session of ``--joy-demo``: stand, then walk
+    forward at 0.3 of the stick (A + stick) from a quarter of the run, A
+    again to stand at half, LB to exit at three quarters; event ticks are
+    fast-loop ticks (GazeboA1ROS.cpp:117-188)."""
+    import numpy as np
+
+    from go1_qp_mpc_controller_torch.runtime import joystick
+
+    def axes(velx=0.0, a=False, lb=False):
+        ax = np.zeros(8, np.float32)
+        ax[4] = velx
+        bt = np.zeros(5, np.int32)
+        bt[0], bt[4] = int(a), int(lb)
+        return ax, bt
+
+    t2 = int(duration / dt)
+    return joystick.ScriptedJoySource([
+        (t2 // 4,) + axes(velx=0.3, a=True),
+        (t2 // 2,) + axes(a=True),
+        (3 * t2 // 4,) + axes(lb=True),
+    ])
+
+
+def cmd_loop(args, model, params, static, device):
+    import torch
+
+    from go1_qp_mpc_controller_torch.models import types
+    from go1_qp_mpc_controller_torch.runtime import feeder as feeder_lib
+    from go1_qp_mpc_controller_torch.runtime import loop as loop_lib
+
+    ctrl = types.init_ctrl_state(model, 1, torch.float32, device)
+    source = (joy_demo_source(args.duration, args.dt) if args.joy_demo
+              else None)
+    cl = loop_lib.ControlLoop(model, params, static, ctrl,
+                              main_period_s=args.dt,
+                              grf_period_s=args.grf_dt or args.dt,
+                              power_level=static.power_level,
+                              time_scale=args.time_scale,
+                              command_source=source,
+                              estimate_in_feed=args.estimate_in_feed,
+                              sensor_period_s=args.feed_dt)
+    feeder = None
+    try:
+        if not args.no_feeder:
+            # simulated 1 kHz sensor feed (the HardwareA1ROS receive
+            # thread's role); the controller starts synced to the plant
+            feeder = feeder_lib.SimFeeder(cl.bridge, model, params,
+                                          height=args.height,
+                                          period_s=args.feed_dt,
+                                          time_scale=args.time_scale,
+                                          device=device)
+            cl.state = feeder.initial_ctrl_state()
+            cl.warmup(dual=not args.single)
+            feeder.start(duration_s=args.duration + 5.0)
+        run = cl.run if args.single else cl.run_dual
+        n = run(duration_s=args.duration)
+        out = {"ticks": n,
+               "grf_ticks": cl.grf_ticks,
+               "time_scale": args.time_scale,
+               "cycle_ms": cl.metrics.summary("cycle_ms"),
+               "grf_ms": cl.metrics.summary("grf_ms")}
+        if cl.est_thread is not None:
+            out["est_frames"] = cl.est_thread.frames
+            out["est_frame_ms"] = cl.metrics.summary("est_frame_ms")
+        if feeder is not None:
+            feeder.stop()
+            if feeder.error is not None:
+                raise RuntimeError("the sensor feed failed") \
+                    from feeder.error
+            out["feeder_ticks"] = feeder.ticks
+            # plant CoM: ~[0, 0, height] when the loops keep up; lower
+            # --time-scale when the GRF solve outlasts the cadence
+            out["plant_root_pos"] = [round(float(v), 4)
+                                     for v in feeder.sim_root_pos]
+            _, cmd = cl.bridge.read_command()
+            out["max_abs_tau"] = round(float(abs(cmd["tau"]).max()), 3)
+        print(json.dumps(out))
+    finally:
+        if feeder is not None:
+            feeder.stop()
+        cl.close()
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--preset", default="gazebo_mpc")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the CUDA card)")
+    sub = parser.add_subparsers(dest="mode", required=True)
+
+    p = sub.add_parser("rollout")
+    p.add_argument("--steps", type=int, default=1500)
+    p.add_argument("--dt", type=float, default=0.002)
+    p.add_argument("--vx", type=float, default=0.3)
+    p.add_argument("--vy", type=float, default=0.0)
+    p.add_argument("--height", type=float, default=0.3)
+    p.add_argument("--no-ekf", action="store_true")
+    p.add_argument("--horizon", type=int, default=None,
+                   help="MPC horizon; only 10 is ported (the stagewise "
+                        "solver for other values is not)")
+    p.add_argument("--trace", default=None, metavar="OUT.npz",
+                   help="not ported yet")
+    p.add_argument("--plot", default=None, metavar="OUT.png",
+                   help="not ported yet")
+    p.set_defaults(fn=cmd_rollout)
+
+    p = sub.add_parser("loop")
+    p.add_argument("--dt", type=float, default=0.002)
+    p.add_argument("--grf-dt", type=float, default=None,
+                   help="GRF solver cadence (default: --dt)")
+    p.add_argument("--feed-dt", type=float, default=0.001,
+                   help="sim sensor-feed cadence (reference: 1 ms)")
+    p.add_argument("--duration", type=float, default=5.0)
+    p.add_argument("--height", type=float, default=0.3)
+    p.add_argument("--time-scale", type=float, default=0.25,
+                   help="real-time factor (Gazebo RTF analog): wall "
+                        "periods = sim periods / time_scale; lower it "
+                        "when the GRF solve outlasts the cadence")
+    p.add_argument("--joy-demo", action="store_true",
+                   help="drive a scripted joystick session (stand -> "
+                        "walk -> stand -> LB exit) through the loop")
+    p.add_argument("--estimate-in-feed", action="store_true",
+                   help="run the EKF in a dedicated thread at the "
+                        "sensor cadence (HardwareA1ROS receive-thread "
+                        "estimation) instead of inside the fast step")
+    p.add_argument("--no-feeder", action="store_true",
+                   help="run against an externally fed bridge")
+    p.add_argument("--single", action="store_true",
+                   help="fused single-cadence loop")
+    p.set_defaults(fn=cmd_loop)
+
+    args = parser.parse_args(argv)
+
+    import torch
+
+    from go1_qp_mpc_controller_torch.config import presets
+    from go1_qp_mpc_controller_torch.utils.device import resolve_device
+    device = resolve_device(args.device)
+    model, params, static = presets.load_preset(args.preset, torch.float32,
+                                                device=device)
+    args.fn(args, model, params, static, device)
+
+
+if __name__ == "__main__":
+    main()

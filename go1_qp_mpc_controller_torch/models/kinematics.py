@@ -41,6 +41,19 @@ def a1_leg_geometry(dtype=torch.float32, device=None):
                                            device=device))
 
 
+def isaac_leg_geometry(dtype=torch.float32, device=None):
+    """Isaac-sim leg geometry variant (IsaacA1ROS.cpp:39-52)."""
+    sign = torch.tensor([1.0, -1.0, 1.0, -1.0], dtype=torch.float64)
+    fb = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=torch.float64)
+    rho_fix = torch.stack([fb * 0.1805, sign * 0.047, sign * 0.0838,
+                           torch.full((4,), 0.22, dtype=torch.float64),
+                           torch.full((4,), 0.21, dtype=torch.float64)],
+                          dim=-1)
+    return LegGeometry(rho_fix=rho_fix.to(device=device, dtype=dtype),
+                       rho_opt=torch.zeros((4, 3), dtype=dtype,
+                                           device=device))
+
+
 def _split(q, rho_opt, rho_fix):
     q1, q2, q3 = q.unbind(-1)
     cx, cy, cz = rho_opt.unbind(-1)

@@ -10,19 +10,23 @@ all of them. Nothing here runs at import time.
 
 import ctypes
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-KERNELS = ("kkt_schulz", "observe_ekf", "schulz_batch", "admm_iterations")
+KERNELS = ("kkt_schulz", "observe_ekf", "schulz_batch", "admm_iterations",
+           "schulz_lanes", "schulz_balanced")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded = {}
+_load_lock = threading.Lock()
 
 
 def _nvcc():
@@ -69,11 +73,20 @@ def build_all(names=KERNELS):
     return logs
 
 
+def wrappers():
+    """{kernel: its wrapper module ``ops/<kernel>.py``, which launches it
+    and keeps its ``launches`` counter}."""
+    return {name: importlib.import_module(f"{__package__}.{name}")
+            for name in KERNELS}
+
+
 def load(name):
-    """The ctypes library of kernel ``name``, built first if needed."""
-    if name not in _loaded:
-        path = library_path(name)
-        if not path.exists():
-            build_all((name,))
-        _loaded[name] = ctypes.CDLL(str(path))
-    return _loaded[name]
+    """The ctypes library of kernel ``name``, built first if needed (thread
+    safe: the host loop's threads make first launches of their own)."""
+    with _load_lock:
+        if name not in _loaded:
+            path = library_path(name)
+            if not path.exists():
+                build_all((name,))
+            _loaded[name] = ctypes.CDLL(str(path))
+        return _loaded[name]

@@ -63,7 +63,7 @@ def observe_ekf_plain(x, P, quat, acc, gyro, qpos, qvel, ffoot, mode, dt,
     x_new, p_new, est_c = ekf.update_estimation(
         x, P, dt, rot, acc, gyro, fpr, fvr, ffoot, mode,
         assume_flat_ground=assume_flat_ground,
-        contact_force_norm=contact_force_norm)
+        contact_force_norm=contact_force_norm, sinv="plain")
     return {"rot": rot, "euler": euler, "rot_z": rot_z, "foot_pos_rel": fpr,
             "foot_pos_abs": fpa, "foot_vel_rel": fvr, "j_foot": jf,
             "root_ang_vel": wav, "x": x_new, "P": p_new,

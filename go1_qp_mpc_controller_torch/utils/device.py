@@ -1,5 +1,7 @@
-"""Device selection, matmul-precision pinning and device constants."""
+"""Device selection, matmul-precision pinning, per-thread streams and
+device constants."""
 
+import contextlib
 import functools
 
 import torch
@@ -36,6 +38,25 @@ def resolve_device(device=None):
         device = "cuda"
     # normalized, so that "cuda" and "cuda:0" compare equal
     return torch.empty(0, device=device).device
+
+
+def new_stream(device):
+    """A CUDA stream of its own on ``device``, or None on the CPU."""
+    return torch.cuda.Stream(device) if device.type == "cuda" else None
+
+
+def on_stream(stream):
+    """Context in which the calling thread issues its work on ``stream``
+    (PyTorch's current stream is per thread); a no-op for None."""
+    return (torch.cuda.stream(stream) if stream is not None
+            else contextlib.nullcontext())
+
+
+def synchronize(device):
+    """Wait for the calling thread's current stream on ``device`` (a no-op
+    on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
 
 
 @functools.lru_cache(maxsize=None)

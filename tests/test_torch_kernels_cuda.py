@@ -1,6 +1,6 @@
-"""The port's CUDA kernels on the card: K1, K2, K3 and K6 against their
-plain versions, the wrappers' input checks, and a few ticks of the paths
-through them.
+"""The port's CUDA kernels on the card: K1 to K6 against their plain
+versions, the wrappers' input checks, and a few ticks of the paths
+through them (the estimator thread's K4 launch a frame among them).
 
 These tests need an NVIDIA GPU and ``nvcc`` (the kernels build at first
 use); without a card they skip. This file imports neither JAX nor the JAX
@@ -14,7 +14,10 @@ tolerance), over the batch and per scenario in balanced coordinates; K2
 K6 per scenario on x (and z): within 1e-3 of the plain version
 (tests/test_pallas_admm.py) and within 2e-3 of the same loop in float64
 (1e-3 more for the float32 loop's own round-off on the QP's flat
-directions); on y within 0.1 x (1 + max|y|) of the plain version.
+directions); on y within 0.1 x (1 + max|y|) of the plain version. K4
+5e-4 x max|plain| per matrix (tests/test_pallas_admm.py:217-219), or on
+ill-conditioned innovation matrices twice the plain version's distance to
+the float64 schedule; K5 5e-6 (tests/test_pallas_admm.py:126-156).
 """
 
 import sys
@@ -344,6 +347,218 @@ def test_new_wrappers_refuse_what_the_kernels_do_not_take(card):
     ops["mu"] = ops["mu"].double()
     with pytest.raises(TypeError):
         admm_iterations.admm_iterations(**ops)
+
+
+@pytest.mark.parametrize("inputs", ["innovation", "spread_spd"])
+def test_k4_kernel_matches_plain(card, inputs):
+    """K4 against its plain version: per matrix within 5e-4 x max|plain|
+    on the spread-diagonal SPD matrices of tests/test_pallas_admm.py; on
+    the EKF's innovation matrices (balanced condition ~3e4, where any
+    two float32 summation orders differ by ~1e-3) within twice the plain
+    version's own distance to the float64 schedule."""
+    from go1_qp_mpc_controller_torch.ops import schulz_lanes
+
+    from go1_qp_mpc_controller_torch.runtime import estimator
+
+    coeffs = admm._scaled_schulz_coeffs(ekf.SINV_L0)
+    if inputs == "innovation":
+        predict = estimator.make_estimator_predict(
+            types.default_robot_model(F32, card))
+        m = predict(*_k2_inputs(256, card)[:10]).s_mat
+    else:
+        m = torch.tensor(chip_smoke.spread_spd(256, 28, 7), device=card)
+    m = m.contiguous()
+    schulz_lanes.reset_launches()
+    got = schulz_lanes.schulz_inverse_lanes(m, coeffs)
+    assert schulz_lanes.launches == 1
+    want = schulz_lanes.schulz_inverse_lanes_plain(m, coeffs)
+    ref = schulz_lanes.schulz_inverse_lanes_plain(m.double(), coeffs)
+    assert torch.isfinite(got).all()
+    rel = lambda x, r: float(((x.double() - r).abs().amax((1, 2))
+                              / r.abs().amax((1, 2))).max())
+    if inputs == "spread_spd":
+        assert rel(got, want.double()) <= 5e-4
+    else:
+        assert rel(got, ref) <= max(5e-4, 2.0 * rel(want, ref))
+
+
+def test_ekf_auto_route_launches_k4_and_k2_plain_does_not(card):
+    from go1_qp_mpc_controller_torch.ops import schulz_lanes
+
+    args = _k2_inputs(64, card)
+    x, p, quat, acc, gyro, qpos, qvel, ffoot, mode, dt, rho_opt, rho_fix = (
+        args)
+    rot = rotations.quat_to_rot_mat(quat)
+    q_legs = qpos.reshape(64, 4, 3)
+    fpr = kinematics.fk(q_legs, rho_opt, rho_fix)
+    fvr = torch.einsum('blij,blj->bli', kinematics.jac(q_legs, rho_opt,
+                                                       rho_fix),
+                       qvel.reshape(64, 4, 3))
+    schulz_lanes.reset_launches()
+    auto = ekf.update_estimation(x, p, dt, rot, acc, gyro, fpr, fvr, ffoot,
+                                 mode)
+    assert schulz_lanes.launches == 1
+    plain = ekf.update_estimation(x, p, dt, rot, acc, gyro, fpr, fvr, ffoot,
+                                  mode, sinv="plain")
+    observe_ekf.observe_ekf_plain(*args)
+    assert schulz_lanes.launches == 1
+    for a, b in zip(auto, plain):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 5e-4 * max(
+            1.0, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("case", ["cold", "warm_accept", "warm_reject",
+                                  "accept_0_steps"])
+def test_k5_kernel_matches_plain(card, case):
+    from go1_qp_mpc_controller_torch.ops import schulz_balanced
+
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn((120, 120), generator=gen, dtype=torch.float64)
+    m = a @ a.T / 120 + 3.0 * torch.eye(120, dtype=torch.float64)
+    s = torch.rsqrt(torch.diagonal(m))
+    mb = (m * s[:, None] * s[None, :]).to(card, F32).contiguous()
+    cold = schulz_balanced.schulz_balanced_plain(mb, 20)
+    iters, x0 = {"cold": (20, None),
+                 "warm_accept": (4, (cold * (1.0 + 1e-3)).contiguous()),
+                 "warm_reject": (20, torch.full((120, 120), 5.0,
+                                                device=card)),
+                 "accept_0_steps": (0, (cold * (1.0 + 1e-3)).contiguous())
+                 }[case]
+    schulz_balanced.reset_launches()
+    got = schulz_balanced.schulz_balanced(mb, iters, x0)
+    assert schulz_balanced.launches == 1
+    want = schulz_balanced.schulz_balanced_plain(mb, iters, x0)
+    assert float((got - want).abs().max()) <= 5e-6
+    if case == "cold":
+        eye = torch.eye(120, device=card)
+        assert float((mb @ got - eye).abs().max()) < 1e-5
+
+
+def test_k4_k5_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from go1_qp_mpc_controller_torch.ops import schulz_balanced, schulz_lanes
+
+    coeffs = admm._scaled_schulz_coeffs(ekf.SINV_L0)
+    eye = lambda n: torch.eye(n, device=card).expand(4, n, n).contiguous()
+    with pytest.raises(ValueError):
+        schulz_lanes.schulz_inverse_lanes(eye(12), coeffs)
+    with pytest.raises(TypeError):
+        schulz_lanes.schulz_inverse_lanes(eye(28).double(), coeffs)
+    with pytest.raises(ValueError):
+        schulz_balanced.schulz_balanced(torch.eye(28, device=card), 5)
+    with pytest.raises(TypeError):
+        schulz_balanced.schulz_balanced(
+            torch.eye(120, device=card, dtype=torch.float64), 5)
+
+
+def test_estimator_thread_launches_k4_each_frame(card):
+    """The runtime's estimator thread on the card: one K4 launch a sensor
+    frame, the estimate finite and near the standing root."""
+    import numpy as np
+
+    from go1_qp_mpc_controller_torch.ops import schulz_lanes
+    from go1_qp_mpc_controller_torch.runtime import bridge, estimator, feeder
+
+    model = types.default_robot_model(F32, card)
+    params = types.default_ctrl_params(F32, card)
+    b = bridge.RtBridge()
+    try:
+        fd = feeder.SimFeeder(b, model, params, height=0.3, device=card)
+        ctrl = fd.initial_ctrl_state()
+        est = estimator.EstimatorThread(b, model, ctrl.estimator_x,
+                                        ctrl.estimator_P, time_scale=0.1)
+        schulz_lanes.reset_launches()
+        fd.start(duration_s=10.0)
+        est.start(num_frames=20)
+        est._thread.join(timeout=30.0)
+        fd.stop()
+        torch.cuda.synchronize()
+        assert est.error is None and fd.error is None
+        assert est.frames == 20 and schulz_lanes.launches == 20
+        x, _, _ = est.snapshot()
+        assert torch.isfinite(x).all()
+        assert np.linalg.norm(x[0, :3].cpu().numpy() - fd.sim_root_pos) < 0.05
+    finally:
+        b.close()
+
+
+def test_captured_runtime_steps_match_eager(card):
+    """The runtime's CUDA-graph replays (the feeder's tick, the estimator's
+    two graphs around K4, the fast step) equal the same steps run eagerly
+    on the same inputs, within 1e-6 x max(1, max|eager|); K4 on the
+    estimator's (1, 28, 28) innovation matrix agrees with its plain
+    version."""
+    import numpy as np
+    from torch.utils import _pytree as pytree
+
+    from go1_qp_mpc_controller_torch.config import presets
+    from go1_qp_mpc_controller_torch.runtime import estimator, feeder, loop
+
+    def close(got, want):
+        for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+            w = w.double()
+            tol = 1e-6 * max(1.0, float(w.abs().max()))
+            assert float((g.double() - w).abs().max()) <= tol
+
+    model, params, static = presets.load_preset("gazebo_mpc", device=card)
+    cl = loop.ControlLoop(model, params, static,
+                          types.init_ctrl_state(model, 1, device=card),
+                          estimate_in_feed=True)
+    try:
+        fd = feeder.SimFeeder(cl.bridge, model, params, device=card)
+        tau = torch.full((1, 12), 0.3, device=card)
+        close(fd._tick(fd._sim, fd._forces_z, tau),
+              fd._step_and_read(fd._sim, fd._forces_z, tau))
+
+        cl.state = fd.initial_ctrl_state()
+        cl.warmup()
+        assert cl._fast is not None
+        est = cl._est_ready
+        # each graph against its eager step, and K4 on each frame's
+        # innovation matrix against its plain version (chip_smoke's gate);
+        # a frame after two dropped ones replays the same graphs with its
+        # own dt
+        predict = estimator.make_estimator_predict(model)
+        coeffs = admm._scaled_schulz_coeffs(ekf.SINV_L0)
+        for gap in (1, 3):
+            frame = est._frame(np.concatenate([
+                [0.999, 0.02, -0.01, 0.0], [0.1, -0.2, 9.7],
+                [0.05, 0.0, -0.1], cl.state.joint_pos[0].cpu().numpy()
+                + 0.01, np.zeros(12), [40.0, 60.0, 55.0, 45.0]]),
+                gap * est.period)
+            pred = predict(est._x, est._P, *est._split(frame), est._mode(1),
+                           gap * est.period)
+            close(est._predict(est._x, est._P, frame, est._mode(1)), pred)
+            s_inv = ekf.innovation_inverse(pred.s_mat, "plain")
+            close(est._correct(pred, s_inv), ekf.correct(pred, s_inv))
+            readings, passed = chip_smoke.k4_check(
+                pred.s_mat, coeffs, chip_smoke.K4_S_TOL,
+                chip_smoke.K4_S_RES_TOL)
+            assert passed, readings
+        sensors = cl._sensor_data({"quat": [1.0, 0, 0, 0],
+                                   "acc": [0.0, 0.0, 9.8],
+                                   "gyro": np.zeros(3),
+                                   "joint_pos": cl.state.joint_pos[0].cpu()
+                                   .double().numpy(),
+                                   "joint_vel": np.zeros(12),
+                                   "foot_force": np.full(4, 50.0)})
+        close(cl._fast(cl.state, sensors, cl.params),
+              cl.fast_step(cl.state, sensors, cl.params))
+    finally:
+        cl.close()
+
+
+def test_captured_step_refuses_a_counted_kernel(card):
+    """A step that launches a counted kernel is not captured: its replays
+    would launch the kernel without the wrapper counting them."""
+    from go1_qp_mpc_controller_torch.ops import schulz_lanes
+    from go1_qp_mpc_controller_torch.utils import graphs
+
+    coeffs = admm._scaled_schulz_coeffs(ekf.SINV_L0)
+    m = torch.eye(28, device=card).expand(2, 28, 28).contiguous()
+    with pytest.raises(RuntimeError, match="schulz_lanes"):
+        graphs.CapturedStep(
+            lambda s: schulz_lanes.schulz_inverse_lanes(s, coeffs), m)
 
 
 def test_dense_paths_launch_k3_and_k6(card):
