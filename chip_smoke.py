@@ -27,7 +27,11 @@ just after it:
 
 K4 (the EKF innovation inverse) is also held against its plain version at
 batch 4096 on its own, like K1, K2 and K3, and at batch 1 on the live
-filter's innovation matrix after each runtime run.
+filter's innovation matrix after each runtime run. K3 at n = 120 is also
+held at batch 16 and 1 (its cluster route), both its routes are timed at
+batch 1-32, and K3's launches are printed by route for each path. Kernel,
+plain version and library call are timed in turn, as medians of
+interleaved spans.
 
 Each phase prints its lines; the last line is ``{"ok": true, "device":
 {...}}`` and is printed only when every phase passed.
@@ -46,8 +50,11 @@ import time
 import traceback
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 outside the
-# tensor cores and HBM3 bandwidth. Every kernel here runs FP32 FMA.
+# tensor cores, dense TF32 on them, and HBM3 bandwidth. Every kernel here
+# runs FP32 FMA, but for the middle Schulz steps of K3 at n = 120 and K5,
+# which run three TF32 passes on the tensor cores.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 N = 120           # MPC decision variables
 F32 = 4           # bytes
@@ -60,7 +67,8 @@ BATCH = 4096
 ONSET_TICKS = 130
 TIMED_TICKS = 120
 PROFILE_TICKS = 60
-REPS = 5          # launches per kernel timing
+REPS = 5          # launches per timed span
+SPANS = 5         # spans per timing; the median is kept
 # scenarios whose carried contact pattern is flipped to drive the
 # compacted cold sub-batch route, and the ticks allowed to find it
 COMPACT_SCENARIOS = (0, 1000, 2047, 3000, 4095)
@@ -89,6 +97,17 @@ POLISHED = dict(seg_iters=25, segments=3)
 # 0.1 (1 + max|y_plain|)
 K6_TOL = 1e-3
 K6_F64_TOL = 2e-3
+# K3 (n = 120) and K5 against the plain version that emulates their 3xTF32
+# middle products (kkt_schulz.matmul_3xtf32): K3 per scenario in balanced
+# coordinates, 10x tighter than its float32 gate (3e-4); K5 half its 5e-6.
+# The card sums each product in its own order and the float32 tail steps
+# round as any float32 product does, so kernel and emulation differ by as
+# much as kernel and the float32 plain version (K3 up to 3.7e-6, K5 up to
+# 1.3e-6 in the first runs), not bit for bit
+K3_EMU_TOL = 3e-5
+K5_EMU_TOL = 2.5e-6
+# K3's route phase: both n = 120 routes timed at these batches
+ROUTE_BATCHES = (1, 2, 4, 8, 12, 16, 32)
 # K4 on innovation matrices S = C P-bar C' + R, per matrix: within
 # K4_S_TOL x max|plain| of the plain version and x max|X| of the float64
 # schedule, and max|S X - I| < K4_S_RES_TOL. At P near its 3 I init their
@@ -119,10 +138,16 @@ def reset_counts():
 
 
 def read_counts():
+    """{kernel: launches since the last reset}, and K3's launches by route
+    under "schulz_batch_routes"."""
     import torch
+    from go1_qp_mpc_controller_torch.ops import schulz_batch
     torch.cuda.synchronize()
-    return {name: module.launches
-            for name, module in kernel_modules().items()}
+    counts = {name: module.launches
+              for name, module in kernel_modules().items()}
+    counts["schulz_batch_routes"] = {
+        r: c for r, c in schulz_batch.route_launches.items() if c}
+    return counts
 
 
 def card_line():
@@ -134,25 +159,40 @@ def card_line():
         "nvidia-smi gave no answer: " + out.stderr.strip())
 
 
-def cuda_ms(fn, reps=5):
-    """Mean device time of ``fn()`` in ms (CUDA events), after a warm-up."""
+def cuda_times(fns, reps=REPS, spans=SPANS):
+    """Device time in ms of each function of ``fns`` ({name: fn}): the
+    median over ``spans`` spans of ``reps`` calls each (CUDA events), the
+    functions' spans taken in turn, after a warm-up call of each."""
+    import statistics
     import torch
-    fn()
+    for fn in fns.values():
+        fn()
     torch.cuda.synchronize()
+    times = {name: [] for name in fns}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    for _ in range(spans):
+        for name, fn in fns.items():
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / reps)
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the larger of the FLOP time at the FP32 peak
-    and the byte time at the HBM peak."""
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+def cuda_ms(fn, reps=REPS):
+    """Device time of ``fn()`` in ms: :func:`cuda_times` of it alone."""
+    return cuda_times({"fn": fn}, reps)["fn"]
+
+
+def bound(flops, nbytes, tf32x3_flops=0.0):
+    """(bound_ms, bound_by): the larger of the operations' time (``flops``
+    at the FP32 peak plus ``tf32x3_flops`` at three TF32 passes on the
+    tensor cores' peak) and the byte time at the HBM peak."""
+    ops_ms = (flops / PEAK_FP32_FLOPS + 3.0 * tf32x3_flops
+              / PEAK_TF32_FLOPS) * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
@@ -584,6 +624,13 @@ def schulz_products(batch, x0, coeffs, n_ok):
     return rest if x0 is None else (batch + n_ok) + rest
 
 
+def schulz_tf32_products(batch, coeffs, hi_tail):
+    """Of :func:`schulz_products`, those the n = 120 kernels run 3xTF32:
+    both products of each step after the first and before the last
+    ``hi_tail``."""
+    return batch * 2 * max(0, len(coeffs) - hi_tail - 1)
+
+
 def basin_accepted(m, x0):
     """How many scenarios' warm starts pass the basin test."""
     import torch
@@ -599,9 +646,15 @@ def k3_phase(batch, gen, device, reps):
     """K3 against its plain version: n = 120 KKTs (``kkt_build_plain`` of
     ``random_kkt_operands``) with the dense solve's 20 plain steps cold,
     the scaled l0 = 1e-6 schedule cold, and 20 steps from a warm start
-    (an eighth of the batch given a start that fails the basin test);
-    n = 12 balance-QP KKTs cold and warm with 20 plain steps. Gated per
-    scenario in balanced coordinates. Returns (record, lines, passed)."""
+    (an eighth of the batch given a start that fails the basin test), at
+    ``batch`` and on the first 16 and 1 of them (each line names the route
+    the wrapper took: one block a matrix above ``CROSSOVER``, a cluster of
+    8 up to it); n = 12 balance-QP KKTs cold and warm with 20 plain
+    steps. Gated per scenario in balanced coordinates against the float32
+    plain version (3e-4) and, at n = 120, against the plain version with
+    the kernel's 3xTF32 middle products (``K3_EMU_TOL``). Kernel, plain
+    version and library call are timed in turn (``cuda_times``). Returns
+    (record, lines, passed)."""
     import torch
     from go1_qp_mpc_controller_torch.ops import admm, kkt_schulz, schulz_batch
 
@@ -617,47 +670,70 @@ def k3_phase(batch, gen, device, reps):
         return torch.where(bad, -good, good).contiguous()
 
     x120, x12 = warm_start(m120), warm_start(m12)
+    head = lambda t, b: t[:b].contiguous()
     variants = {
         "n=120 cold 20 steps": (m120, None, plain20),
         "n=120 cold l0=1e-6": (m120, None, coeffs(1e-6)),
         "n=120 warm 20 steps": (m120, x120, plain20),
+        "n=120 warm 1 step": (m120, x120, (1.0,)),
+        "n=120 cold 20 steps, batch 16": (head(m120, 16), None, plain20),
+        "n=120 warm 20 steps, batch 16": (head(m120, 16), head(x120, 16),
+                                          plain20),
+        "n=120 cold 20 steps, batch 1": (head(m120, 1), None, plain20),
         "n=12 cold 20 steps": (m12, None, plain20),
         "n=12 warm 20 steps": (m12, x12, plain20),
     }
     tol = 3e-4
     lines, records = [], {}
     for name, (m, x0, sched) in variants.items():
-        n = m.shape[-1]
+        b, n = m.shape[0], m.shape[-1]
+        tail = schulz_batch.default_hi_tail(sched)
+        route = schulz_batch.route(n, b, sched)
         got = schulz_batch.schulz_inverse_batch(m, x0, sched)
         want = kkt_schulz.schulz_balanced_plain(m, x0, sched)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         worst_b = float(per_scenario_balanced_error(got, want, m).max())
         finite = bool(torch.isfinite(got).all())
-        n_ok = basin_accepted(m, x0) if x0 is not None else 0
-        kernel_ms = cuda_ms(lambda: schulz_batch.schulz_inverse_batch(
-            m, x0, sched), reps)
-        plain_ms = cuda_ms(lambda: kkt_schulz.schulz_balanced_plain(
-            m, x0, sched), reps)
-        library_ms = cuda_ms(lambda: torch.linalg.inv(m), reps)
-        products = schulz_products(batch, x0, sched, n_ok)
-        mats = 2 if x0 is None else 3
-        bound_ms, bound_by = bound(products * 2.0 * n ** 3,
-                                   mats * batch * n * n * F32)
         passed = finite and worst_b <= tol
+        emu_line = "emulation gate n/a (n = 12 runs FP32)"
+        worst_e = None
+        if n == 120:
+            emu = kkt_schulz.schulz_balanced_plain(
+                m, x0, sched, tail, kkt_schulz.matmul_3xtf32)
+            worst_e = float(per_scenario_balanced_error(got, emu, m).max())
+            passed &= worst_e <= K3_EMU_TOL
+            emu_line = (f"against the 3xTF32 emulation {worst_e:.3e} "
+                        f"(tolerance {K3_EMU_TOL:g})")
+        n_ok = basin_accepted(m, x0) if x0 is not None else 0
+        t = cuda_times({
+            "kernel": lambda: schulz_batch.schulz_inverse_batch(m, x0, sched),
+            "plain": lambda: kkt_schulz.schulz_balanced_plain(m, x0, sched),
+            "library": lambda: torch.linalg.inv(m)}, reps)
+        products = schulz_products(b, x0, sched, n_ok)
+        tc = schulz_tf32_products(b, sched, tail) if n == 120 else 0
+        mats = 2 if x0 is None else 3
+        flop = 2.0 * n ** 3
+        nbytes = mats * b * n * n * F32
+        bound_ms, bound_by = bound((products - tc) * flop, nbytes, tc * flop)
+        bound_fp32_ms, _ = bound(products * flop, nbytes)
         lines.append(
-            f"K3 {name}: batch {batch}, {len(sched)} steps, basin-accepted "
-            f"{n_ok}/{batch if x0 is not None else 0}, max_abs_err "
+            f"K3 {name}: route {route}, batch {b}, {len(sched)} steps "
+            f"({tc // max(b, 1) // 2} 3xTF32), basin-accepted "
+            f"{n_ok}/{b if x0 is not None else 0}, max_abs_err "
             f"{err:.3e}; worst per-scenario balanced error {worst_b:.3e} "
-            f"(tolerance {tol:g}); kernel_ms {kernel_ms:.4f}, plain_ms "
-            f"{plain_ms:.4f}, bound_ms {bound_ms:.4f} ({bound_by}), "
-            f"library_ms {library_ms:.4f} (torch.linalg.inv of the same "
-            f"matrices) {'PASS' if passed else 'FAIL'}")
-        records[name] = dict(err=err, kernel_ms=kernel_ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=library_ms,
-                             passed=passed)
+            f"(tolerance {tol:g}), {emu_line}; kernel_ms "
+            f"{t['kernel']:.4f}, plain_ms {t['plain']:.4f}, bound_ms "
+            f"{bound_ms:.4f} ({bound_by}; FP32-only bound "
+            f"{bound_fp32_ms:.4f}), library_ms {t['library']:.4f} "
+            f"(torch.linalg.inv of the same matrices; medians of {SPANS} "
+            f"interleaved spans of {reps}) {'PASS' if passed else 'FAIL'}")
+        records[name] = dict(err=err, kernel_ms=t["kernel"],
+                             plain_ms=t["plain"], bound_ms=bound_ms,
+                             bound_fp32_ms=bound_fp32_ms, bound_by=bound_by,
+                             library_ms=t["library"], passed=passed)
     main = records["n=120 cold 20 steps"]
+    one = records["n=120 cold 20 steps, batch 1"]
     record = {
         "name": "schulz_batch", "route": "cuda",
         "source": "go1_qp_mpc_controller_torch/csrc/schulz_batch.cu",
@@ -665,8 +741,54 @@ def k3_phase(batch, gen, device, reps):
         "max_abs_err": max(r["err"] for r in records.values()),
         "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": main["library_ms"]}
+        "library_ms": main["library_ms"],
+        "bound_fp32_ms": main["bound_fp32_ms"],
+        "batch1_ms": one["kernel_ms"], "batch1_library_ms": one["library_ms"]}
     return record, lines, all(r["passed"] for r in records.values())
+
+
+def k3_route_phase(gen, device, reps):
+    """K3's two n = 120 routes (``schulz_batch._launch`` with 8 blocks per
+    matrix, then 1) timed in turn with ``torch.linalg.inv`` on the first
+    1, 2, 4, 8, 12, 16 and 32 of 32 random KKTs, 20 plain steps cold; each
+    route within ``K3_EMU_TOL`` of the 3xTF32 emulation per scenario in
+    balanced coordinates (their products sum in different orders, so they
+    agree to that, not bit for bit). Prints the batches at which the
+    cluster route is faster (``schulz_batch.CROSSOVER`` is set from them).
+    Returns (None, lines, passed)."""
+    import torch
+    from go1_qp_mpc_controller_torch.ops import kkt_schulz, schulz_batch
+
+    m32 = kkt_schulz.kkt_build_plain(*random_kkt_operands(32, gen, device))
+    sched, tail = (1.0,) * 20, 2
+    lines, passed, faster = [], True, []
+    for b in ROUTE_BATCHES:
+        m = m32[:b].contiguous()
+        run = lambda cl: schulz_batch._launch(m, None, sched, tail, cl)
+        emu = kkt_schulz.schulz_balanced_plain(m, None, sched, tail,
+                                               kkt_schulz.matmul_3xtf32)
+        got = {"cluster": run(schulz_batch.CLUSTER), "cta": run(1)}
+        err = {k: float(per_scenario_balanced_error(v, emu, m).max())
+               for k, v in got.items()}
+        gap = float(per_scenario_balanced_error(got["cluster"], got["cta"],
+                                                m).max())
+        t = cuda_times({"cluster": lambda: run(schulz_batch.CLUSTER),
+                        "cta": lambda: run(1),
+                        "library": lambda: torch.linalg.inv(m)}, reps)
+        ok = max(err.values()) <= K3_EMU_TOL
+        passed &= ok
+        if t["cluster"] < t["cta"]:
+            faster.append(b)
+        lines.append(
+            f"K3 routes at batch {b} (n = 120, 20 steps cold): cluster_ms "
+            f"{t['cluster']:.4f}, cta_ms {t['cta']:.4f}, library_ms "
+            f"{t['library']:.4f}; against the 3xTF32 emulation cluster "
+            f"{err['cluster']:.3e}, cta {err['cta']:.3e} (tolerance "
+            f"{K3_EMU_TOL:g}), routes' gap {gap:.3e} "
+            f"{'PASS' if ok else 'FAIL'}")
+    lines.append(f"K3 routes: the cluster route is faster at batch "
+                 f"{faster}; CROSSOVER = {schulz_batch.CROSSOVER}")
+    return None, lines, passed
 
 
 def random_scenarios(batch, seed, device):
@@ -1196,11 +1318,13 @@ def k4_phase(batch, gen, seed, device, reps):
     lines, records = [], {}
     for name, (m, tol, res_tol) in sets.items():
         r, passed = k4_check(m, coeffs, tol, res_tol)
-        kernel_ms = cuda_ms(lambda: schulz_lanes.schulz_inverse_lanes(
-            m, coeffs), reps)
-        plain_ms = cuda_ms(lambda: schulz_lanes.schulz_inverse_lanes_plain(
-            m, coeffs), reps)
-        library_ms = cuda_ms(lambda: torch.linalg.inv(m), reps)
+        t = cuda_times({
+            "kernel": lambda: schulz_lanes.schulz_inverse_lanes(m, coeffs),
+            "plain": lambda: schulz_lanes.schulz_inverse_lanes_plain(
+                m, coeffs),
+            "library": lambda: torch.linalg.inv(m)}, reps)
+        kernel_ms, plain_ms, library_ms = (t["kernel"], t["plain"],
+                                           t["library"])
         lines.append(
             f"{k4_line(name, r, tol, res_tol)}; batch {batch}, n {n}, "
             f"{len(coeffs)} steps (the first folded); kernel_ms "
@@ -1253,12 +1377,13 @@ def k5_phase(device, reps):
     path in the JAX package (only its tests call it), so the launches of
     these entry calls are its path, "k5_entry" (the launch counters are
     zeroed before them and read after; the plain versions and the timing
-    launches come after the read). Gates: within 5e-6 of the plain version
-    (the JAX test's tolerance), max|M_b X - I| < 1e-5 on the cold case.
-    Returns (counts, record, lines, passed)."""
+    launches come after the read). Gates: within 5e-6 of the float32 plain
+    version (the JAX test's tolerance), max|M_b X - I| < 1e-5 on the cold
+    case, and within ``K5_EMU_TOL`` of the plain version with the kernel's
+    3xTF32 middle products. Returns (counts, record, lines, passed)."""
     import numpy as np
     import torch
-    from go1_qp_mpc_controller_torch.ops import schulz_balanced
+    from go1_qp_mpc_controller_torch.ops import kkt_schulz, schulz_balanced
 
     n = 120
 
@@ -1290,10 +1415,16 @@ def k5_phase(device, reps):
     lines, errs, passed = [], {}, counts["schulz_balanced"] == len(cases)
     for name, (m, it, x) in cases.items():
         want = schulz_balanced.schulz_balanced_plain(m, it, x)
+        emu = schulz_balanced.schulz_balanced_plain(
+            m, it, x, middle_matmul=kkt_schulz.matmul_3xtf32)
         torch.cuda.synchronize()
         err = float((got[name] - want).abs().max())
-        ok = bool(torch.isfinite(got[name]).all()) and err <= 5e-6
-        line = (f"K5 {name}: max_abs_err {err:.3e} (tolerance 5e-6)")
+        err_e = float((got[name] - emu).abs().max())
+        ok = (bool(torch.isfinite(got[name]).all()) and err <= 5e-6
+              and err_e <= K5_EMU_TOL)
+        line = (f"K5 {name}: max_abs_err {err:.3e} (tolerance 5e-6), "
+                f"against the 3xTF32 emulation {err_e:.3e} (tolerance "
+                f"{K5_EMU_TOL:g})")
         if name == "cold 20 steps":
             resid = float((m @ got[name] - eye).abs().max())
             ok &= resid < 1e-5
@@ -1301,28 +1432,33 @@ def k5_phase(device, reps):
         lines.append(f"{line} {'PASS' if ok else 'FAIL'}")
         errs[name] = err
         passed &= ok
-    kernel_ms = cuda_ms(lambda: schulz_balanced.schulz_balanced(mb, 20),
-                        reps)
-    plain_ms = cuda_ms(lambda: schulz_balanced.schulz_balanced_plain(mb, 20),
-                       reps)
-    library_ms = cuda_ms(lambda: torch.linalg.inv(mb), reps)
-    # cold 20 steps: 38 products of 2 n^3 (the first step folded); M_b read
-    # and X written once. One block on one SM: the launch and the chain of
-    # 38 dependent products, not this bound, set its time
-    bound_ms, bound_by = bound(38 * 2.0 * n ** 3, 2 * n * n * F32)
+    t = cuda_times({
+        "kernel": lambda: schulz_balanced.schulz_balanced(mb, 20),
+        "plain": lambda: schulz_balanced.schulz_balanced_plain(mb, 20),
+        "library": lambda: torch.linalg.inv(mb)}, reps)
+    # cold 20 steps: 38 products of 2 n^3 (the first step folded), 36 of
+    # them 3xTF32; M_b read and X written once. One matrix: the chain of
+    # 38 dependent products and the cluster's exchanges, not this bound,
+    # set its time
+    flop = 2.0 * n ** 3
+    tc = schulz_tf32_products(1, (1.0,) * 20, 2)
+    bound_ms, bound_by = bound((38 - tc) * flop, 2 * n * n * F32, tc * flop)
+    bound_fp32_ms, _ = bound(38 * flop, 2 * n * n * F32)
     lines.append(
-        f"K5 timing (cold 20 steps, one matrix, latency bound): kernel_ms "
-        f"{kernel_ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms {bound_ms:.6f} "
-        f"({bound_by}), library_ms {library_ms:.4f} (torch.linalg.inv of "
-        f"M_b); entry launches {counts['schulz_balanced']} for "
+        f"K5 timing (cold 20 steps, one matrix on one cluster of 8 blocks, "
+        f"latency bound): kernel_ms {t['kernel']:.4f}, plain_ms "
+        f"{t['plain']:.4f}, bound_ms {bound_ms:.6f} ({bound_by}; FP32-only "
+        f"bound {bound_fp32_ms:.6f}), library_ms {t['library']:.4f} "
+        f"(torch.linalg.inv of M_b; medians of {SPANS} interleaved spans of "
+        f"{reps}); entry launches {counts['schulz_balanced']} for "
         f"{len(cases)} calls {'PASS' if passed else 'FAIL'}")
     record = {
         "name": "schulz_balanced", "route": "cuda",
         "source": "go1_qp_mpc_controller_torch/csrc/schulz_balanced.cu",
         "replaces": "go1_qp_mpc_controller_tpu/ops/pallas_admm.py:694",
-        "max_abs_err": max(errs.values()), "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}
+        "max_abs_err": max(errs.values()), "ms": t["kernel"],
+        "plain_ms": t["plain"], "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": t["library"], "bound_fp32_ms": bound_fp32_ms}
     return counts, record, lines, passed
 
 
@@ -1515,6 +1651,8 @@ def main(argv=None):
         ("K3", lambda: k3_phase(BATCH,
                                 torch.Generator().manual_seed(args.seed + 2),
                                 device, REPS)),
+        ("K3 routes", lambda: k3_route_phase(
+            torch.Generator().manual_seed(args.seed + 6), device, REPS)),
         ("K4", lambda: k4_phase(BATCH,
                                 torch.Generator().manual_seed(args.seed + 5),
                                 args.seed + 5, device, REPS)),
@@ -1522,7 +1660,8 @@ def main(argv=None):
     for name, phase in phases:
         try:
             record, lines, passed = phase()
-            records.append(record)
+            if record is not None:
+                records.append(record)
             for line in lines:
                 print(line, flush=True)
             ok &= passed
@@ -1577,7 +1716,13 @@ def main(argv=None):
             traceback.print_exc()
             print(f"FAIL {name} phase raised", flush=True)
             ok = False
+    k3_routes = {path: counts["schulz_batch_routes"]
+                 for path, counts in by_path.items()
+                 if counts["schulz_batch"]}
+    print(f"K3 routes by path: {json.dumps(k3_routes)}", flush=True)
     for record in records:
+        if record["name"] == "schulz_batch":
+            record["routes_by_path"] = k3_routes
         record["launches_by_path"] = {
             path: counts[record["name"]] for path, counts in by_path.items()
             if counts[record["name"]]}

@@ -1,10 +1,11 @@
-// The Schulz body shared by K1 (csrc/kkt_schulz.cu), K3
-// (csrc/schulz_batch.cu), K4 (csrc/schulz_lanes.cu, N = 28) and K5
-// (csrc/schulz_balanced.cu, without the balance): Jacobi balance,
-// basin-safeguarded (scaled) Newton-Schulz schedule and unbalance of one
-// N x N matrix, run by one thread block. Counterpart of the TPU body
+// The FP32 Schulz body shared by K1 (csrc/kkt_schulz.cu), K3 at n = 12
+// (csrc/schulz_batch.cu) and K4 (csrc/schulz_lanes.cu, N = 28): Jacobi
+// balance, basin-safeguarded (scaled) Newton-Schulz schedule and unbalance
+// of one N x N matrix, run by one thread block. Counterpart of the TPU body
 // go1_qp_mpc_controller_tpu/ops/pallas_admm.py::_schulz_batch_body; the
-// plain PyTorch version is ops/kkt_schulz.py::schulz_balanced_plain.
+// plain PyTorch version is ops/kkt_schulz.py::schulz_balanced_plain. K3 at
+// n = 120 and K5 run the tensor-core body of csrc/schulz_tc.cuh instead,
+// which keeps this body's semantics (and its nan_min / nan_max).
 //
 // Layout: the balanced matrix M_b, the iterate X and the product scratch T
 // live in dynamic shared memory (3 N^2 floats: 169 KB at N = 120, under the
@@ -13,10 +14,12 @@
 // tile each (rows ty + TD r, columns tx + TD c: a warp reads consecutive
 // B columns and at most a few A rows); A is read as float4 along k. Every
 // product is full FP32 FMA: the TPU's bf16x3 middle steps and HIGHEST
-// tail both map to FP32, which is at least as tight, and the scaled
-// schedule's noise margin assumes ~1e-6 product error (no TF32). The
-// basin test's reductions are block-wide and propagate NaN like
-// jnp.min / jnp.max.
+// tail both map to FP32 here, which is at least as tight (K1's 120 x 120
+// chain could take schulz_tc.cuh's 3xTF32 middles next; at N = 12 and 28
+// an m16n8k8 tile would be mostly padding). What bounds it: FP32 FMA
+// issue from shared memory at one 169 KB block per SM (N = 120), latency
+// at the small sizes. The basin test's reductions are block-wide and
+// propagate NaN like jnp.min / jnp.max.
 
 #pragma once
 
@@ -164,9 +167,7 @@ __device__ __forceinline__ float* input_slot(float* smem) {
 // On entry input_slot(smem) holds the unbalanced M of this block's
 // scenario (visible to every thread). Computes the basin-safeguarded
 // (scaled) Newton-Schulz inverse and writes the unbalanced S X S to
-// `out`. With BALANCE = false (K5, csrc/schulz_balanced.cu) the input is
-// already balanced, M_b = M and X0_b = X0, and the balanced X is written:
-// the balance and the unbalance are compiled out.
+// `out`.
 //   - M_b = S M S with S = diag(M)^-1/2, c0 = 1 / (1.05 ||M_b||_inf);
 //   - with a warm start x0 (unbalanced, or null): the basin test on
 //     M_b X0_b (min diagonal > 1e-4 and max absolute row sum < 3); an
@@ -176,7 +177,7 @@ __device__ __forceinline__ float* input_slot(float* smem) {
 //     analytically;
 //   - then the rest of the schedule; scenarios that accepted their warm
 //     start run plain Newton (a = 1).
-template <int N, int TD, bool BALANCE = true>
+template <int N, int TD>
 __device__ __forceinline__ void balanced_schulz(
         float* smem, const float* __restrict__ x0, const Schedule& sched,
         int n_coeffs, float* __restrict__ out) {
@@ -194,19 +195,12 @@ __device__ __forceinline__ void balanced_schulz(
     const bool warm = x0 != nullptr;
 
     // Jacobi balance M_b = M * s_i s_j and its inf-norm
-    if constexpr (BALANCE) {
-        if (tid < N) sv[tid] = rsqrtf(tm[tid * N + tid]);
-        __syncthreads();
-    }
+    if (tid < N) sv[tid] = rsqrtf(tm[tid * N + tid]);
+    __syncthreads();
     for (int idx = tid; idx < N * N; idx += NTHREADS) {
-        if constexpr (BALANCE) {
-            const int i = idx / N, j = idx % N;
-            mb[idx] = tm[idx] * (sv[i] * sv[j]);
-            if (warm) xs[idx] = x0[idx] / (sv[i] * sv[j]);
-        } else {
-            mb[idx] = tm[idx];
-            if (warm) xs[idx] = x0[idx];
-        }
+        const int i = idx / N, j = idx % N;
+        mb[idx] = tm[idx] * (sv[i] * sv[j]);
+        if (warm) xs[idx] = x0[idx] / (sv[i] * sv[j]);
     }
     __syncthreads();
     float row = 0.0f;
@@ -286,12 +280,8 @@ __device__ __forceinline__ void balanced_schulz(
 
     // unbalance: M^-1 = S X S
     for (int idx = tid; idx < N * N; idx += NTHREADS) {
-        if constexpr (BALANCE) {
-            const int i = idx / N, j = idx % N;
-            out[idx] = xs[idx] * (sv[i] * sv[j]);
-        } else {
-            out[idx] = xs[idx];
-        }
+        const int i = idx / N, j = idx % N;
+        out[idx] = xs[idx] * (sv[i] * sv[j]);
     }
 }
 

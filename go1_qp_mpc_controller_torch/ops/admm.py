@@ -123,16 +123,19 @@ def _scaled_schulz_coeffs(l0, tail=2, margin=1e-3):
     return tuple(coeffs) + (1.0,) * tail
 
 
-def _schulz_inverse(m_mat, iters, x0=None, coeffs=None):
+def _schulz_inverse(m_mat, iters, x0=None, coeffs=None, hi_tail=2):
     """Newton-Schulz inverse of (B, n, n) UNBALANCED SPD matrices on the
     Jacobi-balanced matrix, with the basin-safeguarded warm start ``x0``:
-    ``coeffs`` (a scaled schedule) or else ``iters`` plain steps. Runs on
-    K3 (``schulz_batch.schulz_inverse_batch``). Also the JAX package's
-    ``_schulz_refine_warm`` (``iters`` plain steps from the carried
-    inverse)."""
+    ``coeffs`` (a scaled schedule) or else ``iters`` plain steps, the last
+    ``hi_tail`` of them in full FP32 on the card (the solvers pass
+    ``ADMMSettings.schulz_hi_tail``, as the JAX package's Pallas route
+    does). Runs on K3 (``schulz_batch.schulz_inverse_batch``). Also the
+    JAX package's ``_schulz_refine_warm`` (``iters`` plain steps from the
+    carried inverse)."""
     if coeffs is None:
         coeffs = (1.0,) * iters
-    return schulz_batch.schulz_inverse_batch(m_mat, x0, coeffs)
+    return schulz_batch.schulz_inverse_batch(m_mat, x0, coeffs,
+                                             hi_tail=hi_tail)
 
 
 def _mu_col(mu):
@@ -557,7 +560,7 @@ def _make_kkt_solve(m_mat, settings, warm_minv=None, solver=None):
             l0 = settings.schulz_l0_first
         coeffs = _scaled_schulz_coeffs(l0) if l0 > 0 else None
         minv = _schulz_inverse(m_mat, settings.schulz_iters, warm_minv,
-                               coeffs)
+                               coeffs, settings.schulz_hi_tail)
     else:
         raise ValueError(f"unknown kkt solver {solver!r}")
     return _minv_solve(minv), minv
@@ -758,7 +761,8 @@ def solve_warm(hessian, gradient, lb, ub, matvec, rmatvec, rmatvec_dense,
         m_mat = (pbar + sigma * torch.eye(n, dtype=pbar.dtype,
                                           device=pbar.device)
                  + rmatvec_dense(rho_vec))
-    minv = _schulz_inverse(m_mat, settings.schulz_refine, warm.minv)
+    minv = _schulz_inverse(m_mat, settings.schulz_refine, warm.minv,
+                           hi_tail=settings.schulz_hi_tail)
     return _warm_finish(minv, functools.partial(_bmv, hessian), gradient,
                         cost, qbar, lb_f, ub_f, rho, rho_vec, matvec,
                         rmatvec, warm, settings, mu)

@@ -166,7 +166,8 @@ def warm_batch_operands(qps, warms, mus, settings):
     m_mat = admm._pyramid_kkt_fused(pbar, settings.sigma, rho_vec,
                                     admm._mu_col(mus))
     minv = admm._schulz_inverse(m_mat, settings.schulz_refine,
-                                warms.minv.contiguous())
+                                warms.minv.contiguous(),
+                                hi_tail=settings.schulz_hi_tail)
     return dict(minv=minv, qbar=(cost[:, None] * qps.gradient).contiguous(),
                 lb=lb_f.contiguous(), ub=ub_f.contiguous(),
                 rho_vec=rho_vec.contiguous(), mu=mus.contiguous(),

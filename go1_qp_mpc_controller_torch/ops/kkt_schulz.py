@@ -71,7 +71,33 @@ def kkt_build_plain(tiled, dmain, off1, off2, cost):
             + band_matrix(dmain, off1, off2))
 
 
-def schulz_balanced_core(mb, x0b=None, coeffs=(1.0,)):
+def tf32_round(x):
+    """float32 ``x`` rounded to TF32 (10 mantissa bits) as the card's
+    ``cvt.rna.tf32.f32`` does, bit for bit: to nearest, ties away from
+    zero (add 0x1000 to the magnitude bits, clear the low 13); NaN and
+    infinity pass through, and a magnitude past the largest TF32 rounds
+    to infinity."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_round: float32 input, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    mag = ((bits & 0x7FFFFFFF) + 0x1000) & 0xFFFFE000
+    out = (mag | (bits & 0x80000000)).to(torch.int32)   # wraps to int32
+    return torch.where(torch.isfinite(x), out.view(torch.float32), x)
+
+
+def matmul_3xtf32(a, b):
+    """The product of the n = 120 kernels' middle steps (K3, K5), emulated
+    in float32: each operand split as hi = tf32(x), lo = tf32(x - hi), and
+    lo hi + hi lo summed before hi hi. The card sums each m16n8k8 tile in
+    its own order, so the kernel agrees with this to float32 round-off,
+    not bit for bit."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def schulz_balanced_core(mb, x0b=None, coeffs=(1.0,), hi_tail=None,
+                         middle_matmul=None):
     """Basin-safeguarded (scaled) Newton-Schulz on already-balanced
     (B, n, n) matrices; returns the BALANCED inverse (the kernels' Schulz
     step, ``_schulz_batch_body`` between balance and unbalance).
@@ -82,8 +108,14 @@ def schulz_balanced_core(mb, x0b=None, coeffs=(1.0,)):
       coeffs: per-step schedule (1.0 = plain Newton step). An empty
         schedule returns the warm start where it passes the basin test and
         the scalar cold init c I elsewhere (c I without a warm start).
+      hi_tail, middle_matmul: with ``middle_matmul`` (e.g.
+        :func:`matmul_3xtf32`), the steps before the last ``hi_tail``
+        (default 2, at most the schedule's length) take both products
+        from it; the basin test, the accepted warm step and the tail keep
+        ``@``. Without it every product is ``@`` (the default).
     """
     n = mb.shape[-1]
+    tail = min(len(coeffs), 2 if hi_tail is None else hi_tail)
     eye = torch.eye(n, dtype=mb.dtype, device=mb.device)
     eye2 = 2.0 * eye
     norminf = torch.amax(torch.sum(torch.abs(mb), dim=-1), dim=-1)
@@ -114,27 +146,32 @@ def schulz_balanced_core(mb, x0b=None, coeffs=(1.0,)):
         x = c * eye
     for k in range(start, len(coeffs)):
         a = coeffs[k]
-        inner = mb @ x
+        mm = (middle_matmul if middle_matmul is not None
+              and k < len(coeffs) - tail else torch.matmul)
+        inner = mm(mb, x)
         if a == 1.0:
-            x = x @ (eye2 - inner)
+            x = mm(x, eye2 - inner)
         else:
             # scaled step X <- a X (2I - a M X); warm-accepted scenarios
             # run plain Newton (a = 1)
             aa = (a if ok is None
                   else torch.where(ok, 1.0, a).to(mb.dtype))
-            x = x @ ((2.0 * aa) * eye - (aa * aa) * inner)
+            x = mm(x, (2.0 * aa) * eye - (aa * aa) * inner)
     return x
 
 
-def schulz_balanced_plain(m, x0=None, coeffs=(1.0,)):
+def schulz_balanced_plain(m, x0=None, coeffs=(1.0,), hi_tail=None,
+                          middle_matmul=None):
     """Balance + :func:`schulz_balanced_core` + unbalance on (B, n, n)
     UNBALANCED SPD matrices with optional unbalanced warm inverses: the
     plain PyTorch version of K3 (``ops/schulz_batch.py``), and K1's after
-    the KKT build."""
+    the KKT build. ``hi_tail`` and ``middle_matmul`` as in
+    :func:`schulz_balanced_core`."""
     s = torch.rsqrt(torch.diagonal(m, dim1=-2, dim2=-1))
     unb = s[:, :, None] * s[:, None, :]
     x0b = None if x0 is None else x0 / unb
-    return schulz_balanced_core(m * unb, x0b, coeffs) * unb
+    return schulz_balanced_core(m * unb, x0b, coeffs, hi_tail,
+                                middle_matmul) * unb
 
 
 def kkt_schulz_plain(tiled, dmain, off1, off2, cost, x0=None,

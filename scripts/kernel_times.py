@@ -3,18 +3,80 @@
 
 Imports ``chip_smoke`` and the port from ``--root`` (a checkout, e.g. one
 unpacked from ``git archive``), builds that checkout's kernels into its own
-``build/kernels/`` and runs its kernel phases (K1, K2, K3 and K4, those its
+``build/kernels/`` and runs its kernel phases (K1 to K6, those its
 ``chip_smoke.py`` has) at the smoke test's batch and seeds, printing their
-lines: kernel, plain and library times beside the bounds. To compare two
-commits on one card, run it in one call for parent, change, change,
-parent:
+lines: kernel, plain and library times beside the bounds. K6 runs on the
+operands of a cold solve and five warm ticks of the dense chain's
+scenarios (as the card-only tests make them). Every time is the median of
+5 spans of ``chip_smoke.REPS`` calls, one function's spans back to back,
+whichever checkout's timer the phase calls (``chip_smoke.py`` itself
+interleaves kernel, plain version and library call, which leaves a small
+kernel's inputs out of L2 and reads slower). To compare two commits on
+one card, run it in one call for parent, change, change, parent:
 
     python3 scripts/kernel_times.py --root build/parent
 """
 
 import argparse
 import os
+import statistics
 import sys
+
+SPANS = 5
+
+
+def median_ms(fn, reps=5):
+    """Device time of ``fn()`` in ms: the median of ``SPANS`` spans of
+    ``reps`` calls (CUDA events), after a warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(SPANS):
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def consecutive_times(fns, reps=5):
+    """``chip_smoke.cuda_times`` with each function's spans back to back:
+    {name: :func:`median_ms` of it}."""
+    return {name: median_ms(fn, reps) for name, fn in fns.items()}
+
+
+def k6_operands(chip_smoke, batch, seed, device):
+    """K6's operands of a warm tick of the dense chain: a cold solve of
+    ``chip_smoke.random_scenarios``, then five warm ticks with the chain's
+    drift."""
+    import torch
+    from go1_qp_mpc_controller_torch.ops import admm, admm_iterations
+
+    scn = chip_smoke.random_scenarios(batch, seed, device)
+    mu = scn["mu"]
+    _, warm = admm.mpc_solve_cold(
+        chip_smoke.condense(scn, scn["x0"], dense=False),
+        admm.ADMMSettings(seg_iters=40, segments=1, polish=False,
+                          schulz_l0=1e-6, schulz_hi_tail=1),
+        mu=mu, contacts=scn["contacts"], foot_pos=scn["foot_pos"])
+    settings = admm.ADMMSettings(seg_iters=15, segments=1, polish=False,
+                                 schulz_refine=1)
+    drift = torch.zeros((batch, 13), device=device)
+    drift[:, 9] = 0.001
+    drift[:, 3] = 0.0005
+    x0 = scn["x0"]
+    for _ in range(5):
+        x0 = x0 + drift
+        qps = chip_smoke.condense(scn, x0, dense=True)
+        ops, _ = admm_iterations.warm_batch_operands(qps, warm, mu, settings)
+        _, warm = admm_iterations.mpc_solve_warm_batch(qps, warm, mu,
+                                                       settings)
+    return ops
 
 
 def main(argv=None):
@@ -32,23 +94,25 @@ def main(argv=None):
     from go1_qp_mpc_controller_torch.utils.device import pin_f32_matmuls
 
     assert os.path.dirname(os.path.abspath(chip_smoke.__file__)) == root
+    chip_smoke.cuda_ms = median_ms
+    chip_smoke.cuda_times = consecutive_times
     pin_f32_matmuls()
     _build.build_all()
     device = torch.device("cuda")
     print(f"root {args.root}: card {chip_smoke.card_line()}", flush=True)
     gen = lambda k: torch.Generator().manual_seed(args.seed + k)
-    phases = [("k1_phase", 0), ("k2_phase", 1), ("k3_phase", 2)]
-    for name, k in phases:
-        _, lines, passed = getattr(chip_smoke, name)(
-            chip_smoke.BATCH, gen(k), device, chip_smoke.REPS)
-        for line in lines:
-            print(f"[{args.root}] {line}", flush=True)
+    out = lambda lines: [print(f"[{args.root}] {line}", flush=True)
+                         for line in lines]
+    for name, k in (("k1_phase", 0), ("k2_phase", 1), ("k3_phase", 2)):
+        out(getattr(chip_smoke, name)(chip_smoke.BATCH, gen(k), device,
+                                      chip_smoke.REPS)[1])
     if hasattr(chip_smoke, "k4_phase"):
-        _, lines, _ = chip_smoke.k4_phase(chip_smoke.BATCH, gen(5),
-                                          args.seed + 5, device,
-                                          chip_smoke.REPS)
-        for line in lines:
-            print(f"[{args.root}] {line}", flush=True)
+        out(chip_smoke.k4_phase(chip_smoke.BATCH, gen(5), args.seed + 5,
+                                device, chip_smoke.REPS)[1])
+    if hasattr(chip_smoke, "k5_phase"):
+        out(chip_smoke.k5_phase(device, chip_smoke.REPS)[2])
+    ops = k6_operands(chip_smoke, chip_smoke.BATCH, args.seed + 3, device)
+    out(chip_smoke.k6_phase(ops, chip_smoke.REPS)[0])
 
 
 if __name__ == "__main__":

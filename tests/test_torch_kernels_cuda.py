@@ -17,7 +17,10 @@ K6 per scenario on x (and z): within 1e-3 of the plain version
 directions); on y within 0.1 x (1 + max|y|) of the plain version. K4
 5e-4 x max|plain| per matrix (tests/test_pallas_admm.py:217-219), or on
 ill-conditioned innovation matrices twice the plain version's distance to
-the float64 schedule; K5 5e-6 (tests/test_pallas_admm.py:126-156).
+the float64 schedule; K5 5e-6 (tests/test_pallas_admm.py:126-156). K3
+at n = 120 and K5 are also held against their plain versions with the
+kernels' 3xTF32 middle products (``kkt_schulz.matmul_3xtf32``), at
+``chip_smoke.K3_EMU_TOL`` and ``chip_smoke.K5_EMU_TOL``.
 """
 
 import sys
@@ -248,6 +251,104 @@ def test_k3_kernel_matches_plain(card, n, warm):
         assert float(_balanced_error(got0, want0, m).max()) <= 3e-4
 
 
+def _k3_120(batch, card, warm, coeffs=(1.0,) * 20, seed=0):
+    """n = 120 KKTs and, if ``warm``, starts of which every eighth (the
+    first among them) fails the basin test."""
+    m = kkt_schulz.kkt_build_plain(*_k1_operands(batch, card, seed))
+    if not warm:
+        return m, None
+    conv = kkt_schulz.schulz_balanced_plain(
+        m, coeffs=admm._scaled_schulz_coeffs(1e-6))
+    bad = (torch.arange(batch, device=card) % 8 == 0)[:, None, None]
+    return m, torch.where(bad, -conv, conv).contiguous()
+
+
+def _assert_k3_close(got, m, x0, coeffs, hi_tail=None):
+    """Within 3e-4 of the float32 plain version and within
+    ``chip_smoke.K3_EMU_TOL`` of the plain version with the kernel's
+    3xTF32 middle products, per scenario in balanced coordinates."""
+    tail = schulz_batch.default_hi_tail(coeffs, hi_tail)
+    want = kkt_schulz.schulz_balanced_plain(m, x0, coeffs)
+    emu = kkt_schulz.schulz_balanced_plain(m, x0, coeffs, tail,
+                                           kkt_schulz.matmul_3xtf32)
+    assert torch.isfinite(got).all()
+    assert float(_balanced_error(got, want, m).max()) <= 3e-4
+    assert float(_balanced_error(got, emu, m).max()) <= chip_smoke.K3_EMU_TOL
+
+
+@pytest.mark.parametrize("batch", [1, 2, 16, 17, 256])
+@pytest.mark.parametrize("warm", [False, True])
+def test_k3_routes_match_plain(card, batch, warm):
+    """n = 120 on the route the wrapper picks for ``batch`` (a cluster of
+    8 blocks a matrix up to ``CROSSOVER``, one block above), one counted
+    launch; the other route passes the same gates."""
+    m, x0 = _k3_120(batch, card, warm, seed=batch)
+    coeffs = (1.0,) * 20
+    schulz_batch.reset_launches()
+    got = schulz_batch.schulz_inverse_batch(m, x0, coeffs)
+    way = "cluster" if batch <= schulz_batch.CROSSOVER else "cta"
+    assert schulz_batch.launches == 1
+    assert schulz_batch.route_launches == {"cluster": int(way == "cluster"),
+                                           "cta": int(way == "cta"),
+                                           "fp32": 0, "n12": 0}
+    _assert_k3_close(got, m, x0, coeffs)
+    other = schulz_batch._launch(m, x0, coeffs, 2,
+                                 1 if way == "cluster" else
+                                 schulz_batch.CLUSTER)
+    _assert_k3_close(other, m, x0, coeffs)
+
+
+@pytest.mark.parametrize("batch", [1, 64])
+def test_k3_fp32_route_without_tf32_steps(card, batch):
+    """The warm refinement's one step (hi_tail leaves no 3xTF32 step) runs
+    K1's FP32 body at n = 120, one counted launch."""
+    m, x0 = _k3_120(batch, card, True, seed=5)
+    schulz_batch.reset_launches()
+    got = schulz_batch.schulz_inverse_batch(m, x0, (1.0,))
+    assert schulz_batch.launches == 1
+    assert schulz_batch.route_launches["fp32"] == 1
+    _assert_k3_close(got, m, x0, (1.0,))
+
+
+@pytest.mark.parametrize("hi_tail", [0, 1, 2])
+@pytest.mark.parametrize("batch", [1, 64])
+def test_k3_hi_tail_matches_plain(card, hi_tail, batch):
+    """The scaled l0 = 1e-6 schedule with the last ``hi_tail`` steps FP32
+    and the rest 3xTF32, on both routes."""
+    coeffs = admm._scaled_schulz_coeffs(1e-6)
+    m, _ = _k3_120(batch, card, False, seed=3)
+    got = schulz_batch.schulz_inverse_batch(m, None, coeffs, hi_tail=hi_tail)
+    _assert_k3_close(got, m, None, coeffs, hi_tail)
+
+
+@pytest.mark.parametrize("steps", [0, 64])
+@pytest.mark.parametrize("batch", [1, 32])
+@pytest.mark.parametrize("warm", [False, True])
+def test_k3_schedule_lengths(card, steps, batch, warm):
+    """The empty schedule (c I, or the accepted start) and the longest
+    one."""
+    coeffs = (1.0,) * steps
+    m, x0 = _k3_120(batch, card, warm, seed=4)
+    got = schulz_batch.schulz_inverse_batch(m, x0, coeffs)
+    _assert_k3_close(got, m, x0, coeffs)
+
+
+def test_a_cluster_launch_that_cannot_be_made_raises(card):
+    """16 blocks a matrix is past the portable cluster size the kernels
+    are set up for: the device refuses the launch and the wrapper raises
+    (there is no fallback route)."""
+    from go1_qp_mpc_controller_torch.ops import schulz_balanced
+
+    m, _ = _k3_120(2, card, False)
+    with pytest.raises(RuntimeError, match="16 blocks"):
+        schulz_batch._launch(m, None, (1.0,) * 4, 2, 16)
+    with pytest.raises(RuntimeError, match="16 blocks"):
+        schulz_balanced._launch(torch.eye(120, device=card), 4, None, 16)
+    # the card is still usable
+    got = schulz_batch.schulz_inverse_batch(m, None, (1.0,) * 20)
+    _assert_k3_close(got, m, None, (1.0,) * 20)
+
+
 def _k6_inputs(batch, device, seed=3):
     """K6's operands of a warm tick, made as chip_smoke.py's dense warm
     chain makes them (its scenario distribution and settings): a fresh
@@ -409,8 +510,11 @@ def test_ekf_auto_route_launches_k4_and_k2_plain_does_not(card):
 
 
 @pytest.mark.parametrize("case", ["cold", "warm_accept", "warm_reject",
-                                  "accept_0_steps"])
+                                  "accept_0_steps", "reject_0_steps"])
 def test_k5_kernel_matches_plain(card, case):
+    """K5 (one cluster of 8 blocks) within 5e-6 of its float32 plain
+    version and within ``chip_smoke.K5_EMU_TOL`` of the plain version
+    with its 3xTF32 middle products."""
     from go1_qp_mpc_controller_torch.ops import schulz_balanced
 
     gen = torch.Generator().manual_seed(0)
@@ -423,13 +527,18 @@ def test_k5_kernel_matches_plain(card, case):
                  "warm_accept": (4, (cold * (1.0 + 1e-3)).contiguous()),
                  "warm_reject": (20, torch.full((120, 120), 5.0,
                                                 device=card)),
-                 "accept_0_steps": (0, (cold * (1.0 + 1e-3)).contiguous())
-                 }[case]
+                 "accept_0_steps": (0, (cold * (1.0 + 1e-3)).contiguous()),
+                 "reject_0_steps": (0, torch.full((120, 120), 5.0,
+                                                  device=card))}[case]
     schulz_balanced.reset_launches()
     got = schulz_balanced.schulz_balanced(mb, iters, x0)
     assert schulz_balanced.launches == 1
     want = schulz_balanced.schulz_balanced_plain(mb, iters, x0)
+    emu = schulz_balanced.schulz_balanced_plain(
+        mb, iters, x0, middle_matmul=kkt_schulz.matmul_3xtf32)
+    assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= 5e-6
+    assert float((got - emu).abs().max()) <= chip_smoke.K5_EMU_TOL
     if case == "cold":
         eye = torch.eye(120, device=card)
         assert float((mb @ got - eye).abs().max()) < 1e-5
