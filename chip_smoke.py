@@ -27,11 +27,12 @@ just after it:
 
 K4 (the EKF innovation inverse) is also held against its plain version at
 batch 4096 on its own, like K1, K2 and K3, and at batch 1 on the live
-filter's innovation matrix after each runtime run. K3 at n = 120 is also
-held at batch 16 and 1 (its cluster route), both its routes are timed at
-batch 1-32, and K3's launches are printed by route for each path. Kernel,
-plain version and library call are timed in turn, as medians of
-interleaved spans.
+filter's innovation matrix after each runtime run. K1 is also held at
+batch 128 (the main path's compacted cold sub-batch) and 1, K2 at batch 1,
+K3 at n = 120 at batch 16 and 1 (its cluster route); K3's routes are
+timed against each other at batch 1-32, and K1's and K3's launches are
+printed by route for each path. Kernel, plain version and library call
+are timed in turn, as medians of interleaved spans.
 
 Each phase prints its lines; the last line is ``{"ok": true, "device":
 {...}}`` and is printed only when every phase passed.
@@ -51,8 +52,8 @@ import traceback
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 outside the
 # tensor cores, dense TF32 on them, and HBM3 bandwidth. Every kernel here
-# runs FP32 FMA, but for the middle Schulz steps of K3 at n = 120 and K5,
-# which run three TF32 passes on the tensor cores.
+# runs FP32 FMA, but for the middle Schulz steps of K1, K3 at n = 120 and
+# K5, which run three TF32 passes on the tensor cores.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
@@ -106,6 +107,11 @@ K6_F64_TOL = 2e-3
 # 1.3e-6 in the first runs), not bit for bit
 K3_EMU_TOL = 3e-5
 K5_EMU_TOL = 2.5e-6
+# K1 against its 3xTF32 emulation: K3's gate (the same body and products)
+K1_EMU_TOL = K3_EMU_TOL
+# K1's phase: the main batch and these heads of it (the main path's
+# compacted cold sub-batch is compact_k = 128; one robot is batch 1)
+K1_BATCHES = (128, 1)
 # K3's route phase: both n = 120 routes timed at these batches
 ROUTE_BATCHES = (1, 2, 4, 8, 12, 16, 32)
 # K4 on innovation matrices S = C P-bar C' + R, per matrix: within
@@ -138,15 +144,15 @@ def reset_counts():
 
 
 def read_counts():
-    """{kernel: launches since the last reset}, and K3's launches by route
-    under "schulz_batch_routes"."""
+    """{kernel: launches since the last reset}, and K1's and K3's launches
+    by route under "kkt_schulz_routes" and "schulz_batch_routes"."""
     import torch
-    from go1_qp_mpc_controller_torch.ops import schulz_batch
     torch.cuda.synchronize()
-    counts = {name: module.launches
-              for name, module in kernel_modules().items()}
-    counts["schulz_batch_routes"] = {
-        r: c for r, c in schulz_batch.route_launches.items() if c}
+    modules = kernel_modules()
+    counts = {name: module.launches for name, module in modules.items()}
+    for name in ("kkt_schulz", "schulz_batch"):
+        counts[f"{name}_routes"] = {
+            r: c for r, c in modules[name].route_launches.items() if c}
     return counts
 
 
@@ -243,8 +249,15 @@ def random_kkt_operands(batch, gen, device):
 def k1_phase(batch, gen, device, reps):
     """K1 against its plain version: cold l0=1e-3, and warm refine=1 and
     l0=1e-4 from a warm start (an eighth of the batch given a start that
-    fails the basin test). Returns (record for the kernels line, lines,
-    passed)."""
+    fails the basin test), each at ``batch`` and on the first
+    ``K1_BATCHES`` scenarios, on the route the wrapper takes
+    (``kkt_schulz.route``); the two schedules with 3xTF32 steps at the
+    wrapper's default ``hi_tail`` of 2 and at the main path's 1. Gated
+    per scenario in balanced coordinates against the float32 plain version
+    (3e-4) and, where the schedule has a 3xTF32 step, against the plain
+    version with the kernel's 3xTF32 middle products (``K1_EMU_TOL``).
+    Kernel, plain version and ``torch.linalg.inv`` of the built M are
+    timed in turn. Returns (record for the kernels line, lines, passed)."""
     import torch
     from go1_qp_mpc_controller_torch.ops import admm, kkt_schulz
 
@@ -253,75 +266,97 @@ def k1_phase(batch, gen, device, reps):
     x_good = kkt_schulz.kkt_schulz(*ops, coeffs=coeffs(1e-4))
     bad = (torch.arange(batch, device=device) % 8 == 0)[:, None, None]
     x0 = torch.where(bad, -x_good, x_good).contiguous()
-
-    # basin test as the kernel runs it, to count this run's products
     m = kkt_schulz.kkt_build_plain(*ops)
-    s = torch.rsqrt(torch.diagonal(m, dim1=-2, dim2=-1))
-    unb = s[:, :, None] * s[:, None, :]
-    n_ok = basin_accepted(m, x0)
+    head = lambda t, b: t[:b].contiguous()
 
-    in_bytes = batch * (4 * 12 * N + 3 * N + 1) * F32
-    mat_bytes = batch * N * N * F32
-    build_flops = batch * N * N * 9.0
     prod = 2.0 * N ** 3
     variants = {
-        "cold_l0=1e-3": (None, coeffs(1e-3)),
-        "warm_refine=1": (x0, (1.0,)),
-        "warm_l0=1e-4": (x0, coeffs(1e-4)),
+        "cold_l0=1e-3": (False, coeffs(1e-3), None),
+        "cold_l0=1e-3 hi_tail=1": (False, coeffs(1e-3), 1),
+        "warm_refine=1": (True, (1.0,), None),
+        "warm_l0=1e-4": (True, coeffs(1e-4), None),
+        "warm_l0=1e-4 hi_tail=1": (True, coeffs(1e-4), 1),
     }
-    mb = m * unb
-    eye = torch.eye(N, dtype=mb.dtype, device=device)
+    tol = 3e-4
     lines, records = [], {}
-    for name, (xw, sched) in variants.items():
-        got = kkt_schulz.kkt_schulz(*ops, x0=xw, coeffs=sched)
-        want = kkt_schulz.kkt_schulz_plain(*ops, x0=xw, coeffs=sched)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
-        median = float(want.abs().median())
-        # the gate: the error per scenario, relative to that scenario's
-        # largest entry, in balanced coordinates (X_b = S^-1 X S^-1). There
-        # every block of the inverse is O(1), so the small blocks of the
-        # equality (swing-leg) rows weigh as much as the large ones, and a
-        # low-scale scenario as much as the largest.
-        got_b, want_b = got / unb, want / unb
-        err_b = ((got_b - want_b).abs().amax((1, 2))
-                 / want_b.abs().amax((1, 2)))
-        worst_b = float(err_b.max())
-        # balanced residual inf-norm ||M_b X_b - I|| of each, per scenario
-        res = lambda xb: (mb @ xb - eye).abs().sum(-1).amax(-1)
-        res_k, res_p = res(got_b), res(want_b)
-        res_gap = float((res_k - res_p).abs().max())
-        tol = 3e-4
-        finite = bool(torch.isfinite(got).all())
-        kernel_ms = cuda_ms(lambda: kkt_schulz.kkt_schulz(
-            *ops, x0=xw, coeffs=sched), reps)
-        plain_ms = cuda_ms(lambda: kkt_schulz.kkt_schulz_plain(
-            *ops, x0=xw, coeffs=sched), reps)
-        n = len(sched)
-        products = schulz_products(batch, xw, sched, n_ok)
-        nbytes = in_bytes + (1 if xw is None else 2) * mat_bytes
-        bound_ms, bound_by = bound(products * prod + build_flops, nbytes)
-        passed = finite and worst_b <= tol
-        lines.append(
-            f"K1 {name}: batch {batch}, {n} steps, basin-accepted "
-            f"{n_ok if xw is not None else 0}/{batch}, max_abs_err {err:.3e}"
-            f" (relative to max|plain| {rel:.3e}; median|plain| "
-            f"{median:.3e}); worst per-scenario balanced error {worst_b:.3e}"
-            f" (tolerance {tol:g} x the scenario's max|plain_b|); balanced "
-            f"residual max kernel {float(res_k.max()):.3e} plain "
-            f"{float(res_p.max()):.3e}, largest gap {res_gap:.3e}; "
-            f"kernel_ms {kernel_ms:.4f}, plain_ms {plain_ms:.4f}, "
-            f"bound_ms {bound_ms:.4f} ({bound_by}) "
-            f"{'PASS' if passed else 'FAIL'}")
-        records[name] = dict(err=err, kernel_ms=kernel_ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, passed=passed)
-    library_ms = cuda_ms(lambda: torch.linalg.inv(m), reps)
-    lines.append(f"K1 library yardstick: torch.linalg.inv on the "
-                 f"materialized batch of M (inverse only, not the build): "
-                 f"library_ms {library_ms:.4f}")
-    warm = records["warm_refine=1"]
+    for b in (batch,) + tuple(k for k in K1_BATCHES if k < batch):
+        ops_b = [head(t, b) for t in ops]
+        m_b = head(m, b)
+        x0_b = head(x0, b)
+        s = torch.rsqrt(torch.diagonal(m_b, dim1=-2, dim2=-1))
+        unb = s[:, :, None] * s[:, None, :]
+        mb = m_b * unb
+        eye = torch.eye(N, dtype=mb.dtype, device=device)
+        # basin test as the kernel runs it, to count this run's products
+        n_ok = basin_accepted(m_b, x0_b)
+        in_bytes = b * (4 * 12 * N + 3 * N + 1) * F32
+        mat_bytes = b * N * N * F32
+        build_flops = b * N * N * 9.0
+        for name, (warm, sched, hi_tail) in variants.items():
+            xw = x0_b if warm else None
+            tail = kkt_schulz.default_hi_tail(sched, hi_tail)
+            way = kkt_schulz.route(sched, tail)
+            got = kkt_schulz.kkt_schulz(*ops_b, x0=xw, coeffs=sched,
+                                        hi_tail=tail)
+            want = kkt_schulz.kkt_schulz_plain(*ops_b, x0=xw, coeffs=sched)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            # the gate: the error per scenario, relative to that scenario's
+            # largest entry, in balanced coordinates (X_b = S^-1 X S^-1).
+            # There every block of the inverse is O(1), so the small blocks
+            # of the equality (swing-leg) rows weigh as much as the large
+            # ones, and a low-scale scenario as much as the largest.
+            worst_b = float(per_scenario_balanced_error(got, want, m_b).max())
+            # balanced residual inf-norm ||M_b X_b - I|| of each, per scenario
+            res = lambda xb: (mb @ xb - eye).abs().sum(-1).amax(-1)
+            res_k, res_p = res(got / unb), res(want / unb)
+            res_gap = float((res_k - res_p).abs().max())
+            finite = bool(torch.isfinite(got).all())
+            passed = finite and worst_b <= tol
+            tc = (schulz_tf32_products(b, sched, tail)
+                  if tail < len(sched) else 0)
+            emu_line = "no 3xTF32 step (emulation gate n/a)"
+            if tc:
+                emu = kkt_schulz.kkt_schulz_plain(
+                    *ops_b, x0=xw, coeffs=sched, hi_tail=tail,
+                    middle_matmul=kkt_schulz.matmul_3xtf32)
+                worst_e = float(per_scenario_balanced_error(got, emu,
+                                                            m_b).max())
+                passed &= worst_e <= K1_EMU_TOL
+                emu_line = (f"against the 3xTF32 emulation {worst_e:.3e} "
+                            f"(tolerance {K1_EMU_TOL:g})")
+            t = cuda_times({
+                "kernel": lambda: kkt_schulz.kkt_schulz(
+                    *ops_b, x0=xw, coeffs=sched, hi_tail=tail),
+                "plain": lambda: kkt_schulz.kkt_schulz_plain(
+                    *ops_b, x0=xw, coeffs=sched),
+                "library": lambda: torch.linalg.inv(m_b)}, reps)
+            products = schulz_products(b, xw, sched, n_ok)
+            nbytes = in_bytes + (2 if warm else 1) * mat_bytes
+            bound_ms, bound_by = bound((products - tc) * prod + build_flops,
+                                       nbytes, tc * prod)
+            bound_fp32_ms, _ = bound(products * prod + build_flops, nbytes)
+            lines.append(
+                f"K1 {name} batch {b}: route {way}, {len(sched)} steps "
+                f"({tc // max(b, 1) // 2} 3xTF32, hi_tail {tail}), "
+                f"basin-accepted {n_ok if warm else 0}/{b if warm else 0}, "
+                f"max_abs_err {err:.3e} (relative to max|plain| {rel:.3e});"
+                f" worst per-scenario balanced error {worst_b:.3e} "
+                f"(tolerance {tol:g}), {emu_line}; balanced residual max "
+                f"kernel {float(res_k.max()):.3e} plain "
+                f"{float(res_p.max()):.3e}, largest gap {res_gap:.3e}; "
+                f"kernel_ms {t['kernel']:.4f}, plain_ms {t['plain']:.4f}, "
+                f"bound_ms {bound_ms:.4f} ({bound_by}; FP32-only bound "
+                f"{bound_fp32_ms:.4f}), library_ms {t['library']:.4f} "
+                f"(torch.linalg.inv of the built M, the inverse only) "
+                f"{'PASS' if passed else 'FAIL'}")
+            records[(name, b)] = dict(
+                err=err, kernel_ms=t["kernel"], plain_ms=t["plain"],
+                library_ms=t["library"], bound_ms=bound_ms,
+                bound_fp32_ms=bound_fp32_ms, bound_by=bound_by, route=way,
+                passed=passed)
+    warm = records[("warm_refine=1", batch)]
     record = {
         "name": "kkt_schulz", "route": "cuda",
         "source": "go1_qp_mpc_controller_torch/csrc/kkt_schulz.cu",
@@ -329,7 +364,11 @@ def k1_phase(batch, gen, device, reps):
         "max_abs_err": max(r["err"] for r in records.values()),
         "ms": warm["kernel_ms"], "plain_ms": warm["plain_ms"],
         "bound_ms": warm["bound_ms"], "bound_by": warm["bound_by"],
-        "library_ms": library_ms}
+        "library_ms": warm["library_ms"],
+        "by_variant": {f"{name} batch {b} ({r['route']})": {
+            k: r[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                              "bound_ms", "bound_fp32_ms")}
+            for (name, b), r in records.items()}}
     return record, lines, all(r["passed"] for r in records.values())
 
 
@@ -362,55 +401,71 @@ def random_ekf_inputs(batch, gen, device):
 
 
 def k2_phase(batch, gen, device, reps):
-    """K2 against its plain version on all 11 outputs."""
+    """K2 against its plain version on all 11 outputs, at ``batch`` and on
+    the first scenario alone."""
     import torch
     from go1_qp_mpc_controller_torch.ops import observe_ekf
 
     from go1_qp_mpc_controller_torch.ops import schulz_lanes
 
-    args = random_ekf_inputs(batch, gen, device)
-    got = observe_ekf.observe_ekf(*args)
-    k4_before = schulz_lanes.launches
-    want = observe_ekf.observe_ekf_plain(*args)
-    torch.cuda.synchronize()
-    # the plain version stays plain: its innovation inverse is not K4
-    plain_k4 = schulz_lanes.launches - k4_before
-    worst, max_err, passed = 0.0, 0.0, plain_k4 == 0
-    for name, _ in observe_ekf.OUTPUTS:
-        tol = 5e-4 if name in ("x", "P") else 1e-5
-        w = want[name].float()
-        err = float((got[name] - w).abs().max())
-        atol = tol * max(1.0, float(w.abs().max()))
-        passed &= bool(torch.isfinite(got[name]).all()) and err <= atol
-        worst = max(worst, err / atol)
-        max_err = max(max_err, err)
-    kernel_ms = cuda_ms(lambda: observe_ekf.observe_ekf(*args), reps)
-    plain_ms = cuda_ms(lambda: observe_ekf.observe_ekf_plain(*args), reps)
-    # bytes: each input read once, each output written once
-    in_floats = 18 + 324 + 4 + 3 + 3 + 12 + 12 + 4 + 1
-    out_floats = sum(math.prod(shape) for _, shape in observe_ekf.OUTPUTS)
-    nm, ns = 28, 18
-    flops_per = (22 * 2 * nm ** 3            # Schulz, first step folded
-                 + 2 * ns * nm * nm          # gain K = P C' S^-1
-                 + 2 * 2 * ns ** 3           # (I - K C) P (I - K C)'
-                 + 2 * ns * ns * nm          # K R K'
-                 + 2 * ns * nm)              # K err
-    bound_ms, bound_by = bound(batch * flops_per,
-                               batch * (in_floats + out_floats) * F32)
-    line = (f"K2 observe+EKF: batch {batch}, 11 outputs, max_abs_err "
+    full = random_ekf_inputs(batch, gen, device)
+    lines, records, all_passed = [], {}, True
+    for b in (batch, 1):
+        args = [t[:b].contiguous() for t in full[:9]] + full[9:]
+        got = observe_ekf.observe_ekf(*args)
+        k4_before = schulz_lanes.launches
+        want = observe_ekf.observe_ekf_plain(*args)
+        torch.cuda.synchronize()
+        # the plain version stays plain: its innovation inverse is not K4
+        plain_k4 = schulz_lanes.launches - k4_before
+        worst, max_err, passed = 0.0, 0.0, plain_k4 == 0
+        for name, _ in observe_ekf.OUTPUTS:
+            tol = 5e-4 if name in ("x", "P") else 1e-5
+            w = want[name].float()
+            err = float((got[name] - w).abs().max())
+            atol = tol * max(1.0, float(w.abs().max()))
+            passed &= bool(torch.isfinite(got[name]).all()) and err <= atol
+            worst = max(worst, err / atol)
+            max_err = max(max_err, err)
+        t = cuda_times({
+            "kernel": lambda: observe_ekf.observe_ekf(*args),
+            "plain": lambda: observe_ekf.observe_ekf_plain(*args)}, reps)
+        # bytes: each input read once, each output written once
+        in_floats = 18 + 324 + 4 + 3 + 3 + 12 + 12 + 4 + 1
+        out_floats = sum(math.prod(shape)
+                         for _, shape in observe_ekf.OUTPUTS)
+        nm, ns = 28, 18
+        flops_per = (22 * 2 * nm ** 3            # Schulz, first step folded
+                     + 2 * ns * nm * nm          # gain K = P C' S^-1
+                     + 2 * 2 * ns ** 3           # (I - K C) P (I - K C)'
+                     + 2 * ns * ns * nm          # K R K'
+                     + 2 * ns * nm)              # K err
+        bound_ms, bound_by = bound(b * flops_per,
+                                   b * (in_floats + out_floats) * F32)
+        lines.append(
+            f"K2 observe+EKF: batch {b}, 11 outputs, max_abs_err "
             f"{max_err:.3e} (worst err/tolerance {worst:.3f}; tolerance "
             f"5e-4 on x, P and 1e-5 elsewhere, x max(1, max|plain|)), "
-            f"kernel_ms {kernel_ms:.4f}, plain_ms {plain_ms:.4f}, "
+            f"kernel_ms {t['kernel']:.4f}, plain_ms {t['plain']:.4f}, "
             f"bound_ms {bound_ms:.4f} ({bound_by}); K4 launches in the "
             f"plain version {plain_k4} (must be 0) "
             f"{'PASS' if passed else 'FAIL'}")
+        records[b] = dict(err=max_err, kernel_ms=t["kernel"],
+                          plain_ms=t["plain"], bound_ms=bound_ms,
+                          bound_by=bound_by)
+        all_passed &= passed
+    main = records[batch]
     record = {
         "name": "observe_ekf", "route": "cuda",
         "source": "go1_qp_mpc_controller_torch/csrc/observe_ekf.cu",
         "replaces": "go1_qp_mpc_controller_tpu/ops/pallas_ekf.py:280",
-        "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
-    return record, [line], passed
+        "max_abs_err": max(r["err"] for r in records.values()),
+        "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None, "batch1_ms": records[1]["kernel_ms"],
+        "batch1_plain_ms": records[1]["plain_ms"],
+        "batch1_bound_ms": records[1]["bound_ms"]}
+    return record, lines, all_passed
 
 
 def profile_lines(run, ticks, wall_ms_per_tick):
@@ -1716,13 +1771,15 @@ def main(argv=None):
             traceback.print_exc()
             print(f"FAIL {name} phase raised", flush=True)
             ok = False
-    k3_routes = {path: counts["schulz_batch_routes"]
-                 for path, counts in by_path.items()
-                 if counts["schulz_batch"]}
-    print(f"K3 routes by path: {json.dumps(k3_routes)}", flush=True)
+    routes = {}
+    for name, label in (("kkt_schulz", "K1"), ("schulz_batch", "K3")):
+        routes[name] = {path: counts[f"{name}_routes"]
+                        for path, counts in by_path.items() if counts[name]}
+        print(f"{label} routes by path: {json.dumps(routes[name])}",
+              flush=True)
     for record in records:
-        if record["name"] == "schulz_batch":
-            record["routes_by_path"] = k3_routes
+        if record["name"] in routes:
+            record["routes_by_path"] = routes[record["name"]]
         record["launches_by_path"] = {
             path: counts[record["name"]] for path, counts in by_path.items()
             if counts[record["name"]]}

@@ -49,8 +49,8 @@ schulz_balanced_kernel(const float* __restrict__ mb,   // (N, N) balanced
     cg::cluster_group cluster = cg::this_cluster();
     if (cluster.num_blocks() != schulz_tc::CLUSTER) return;
     schulz_tc::tc_schulz<true, false>(
-        reinterpret_cast<float*>(smem4), (int)cluster.block_rank(), mb, x0,
-        N, sched, n_coeffs, hi_tail, out);
+        reinterpret_cast<float*>(smem4), (int)cluster.block_rank(),
+        schulz_tc::DenseSource{mb}, x0, N, sched, n_coeffs, hi_tail, out);
 }
 
 }  // namespace

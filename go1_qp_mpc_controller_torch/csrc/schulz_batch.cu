@@ -82,7 +82,7 @@ schulz_tc_cta_kernel(const float* __restrict__ m,     // (B, n, n)
     extern __shared__ float4 smem4[];
     const size_t off = (size_t)blockIdx.x * n * n;
     schulz_tc::tc_schulz<false, true>(
-        reinterpret_cast<float*>(smem4), 0, m + off,
+        reinterpret_cast<float*>(smem4), 0, schulz_tc::DenseSource{m + off},
         x0 != nullptr ? x0 + off : nullptr, n, sched, n_coeffs, hi_tail,
         out + off);
 }
@@ -99,7 +99,8 @@ schulz_tc_cluster_kernel(const float* __restrict__ m,
     if (cluster.num_blocks() != schulz_tc::CLUSTER) return;
     const size_t off = (size_t)(blockIdx.x / schulz_tc::CLUSTER) * n * n;
     schulz_tc::tc_schulz<true, true>(
-        reinterpret_cast<float*>(smem4), (int)cluster.block_rank(), m + off,
+        reinterpret_cast<float*>(smem4), (int)cluster.block_rank(),
+        schulz_tc::DenseSource{m + off},
         x0 != nullptr ? x0 + off : nullptr, n, sched, n_coeffs, hi_tail,
         out + off);
 }

@@ -1,25 +1,30 @@
-// The FP32 Schulz body shared by K1 (csrc/kkt_schulz.cu), K3 at n = 12
-// (csrc/schulz_batch.cu) and K4 (csrc/schulz_lanes.cu, N = 28): Jacobi
-// balance, basin-safeguarded (scaled) Newton-Schulz schedule and unbalance
-// of one N x N matrix, run by one thread block. Counterpart of the TPU body
+// The FP32 Schulz body shared by K1's "fp32" route (csrc/kkt_schulz.cu),
+// K3 at n = 12 and its n = 120 "fp32" route (csrc/schulz_batch.cu) and K4
+// (csrc/schulz_lanes.cu, N = 28): Jacobi balance, basin-safeguarded
+// (scaled) Newton-Schulz schedule and unbalance of one N x N matrix, run by
+// one thread block. Counterpart of the TPU body
 // go1_qp_mpc_controller_tpu/ops/pallas_admm.py::_schulz_batch_body; the
-// plain PyTorch version is ops/kkt_schulz.py::schulz_balanced_plain. K3 at
-// n = 120 and K5 run the tensor-core body of csrc/schulz_tc.cuh instead,
-// which keeps this body's semantics (and its nan_min / nan_max).
+// plain PyTorch version is ops/kkt_schulz.py::schulz_balanced_plain.
+// Schedules with a 3xTF32 step at n = 120 (K1, K3) and K5 run the
+// tensor-core body of csrc/schulz_tc.cuh instead, which keeps this body's
+// semantics (and its nan_min / nan_max).
 //
 // Layout: the balanced matrix M_b, the iterate X and the product scratch T
 // live in dynamic shared memory (3 N^2 floats: 169 KB at N = 120, under the
 // 227 KB a block may use), so the schedule touches device memory only for
 // the warm start and the result. TD x TD threads own an RT x RT register
 // tile each (rows ty + TD r, columns tx + TD c: a warp reads consecutive
-// B columns and at most a few A rows); A is read as float4 along k. Every
-// product is full FP32 FMA: the TPU's bf16x3 middle steps and HIGHEST
-// tail both map to FP32 here, which is at least as tight (K1's 120 x 120
-// chain could take schulz_tc.cuh's 3xTF32 middles next; at N = 12 and 28
-// an m16n8k8 tile would be mostly padding). What bounds it: FP32 FMA
-// issue from shared memory at one 169 KB block per SM (N = 120), latency
-// at the small sizes. The basin test's reductions are block-wide and
-// propagate NaN like jnp.min / jnp.max.
+// B columns and at most a few A rows; at N = 120 columns 4 tx .. 4 tx + 3
+// and 80 + 2 tx, + 1, so a B row is read as a float4 and a float2); A is
+// read as float4 along k. Every
+// product is full FP32 FMA (the TPU's HIGHEST; this body runs only
+// schedules without a bf16x3 step at n = 120, and at N = 12 and 28 an
+// m16n8k8 tile would be mostly padding). What bounds it: FP32 FMA issue
+// from shared memory at one 169 KB block per SM (N = 120), latency at the
+// small sizes. The basin test's reductions are block-wide and propagate
+// NaN like jnp.min / jnp.max. balanced_schulz balances a matrix already in
+// shared memory; K1's "fp32" route balances as it builds and calls
+// schulz_core itself.
 
 #pragma once
 
@@ -91,6 +96,17 @@ __device__ void block_minmax(float lo, float hi, float* red, float* out_lo,
     __syncthreads();
 }
 
+// column c of thread tx's tile: at N = 120 on 20 x 20 threads the first
+// four columns are 4 tx .. 4 tx + 3 and the last two 80 + 2 tx, + 1 (B
+// read as a float4 and a float2); otherwise tx + TD c
+template <int N, int TD>
+__device__ __forceinline__ int tile_col(int tx, int c) {
+    if constexpr (N == 120 && TD == 20)
+        return c < 4 ? 4 * tx + c : 80 + 2 * tx + (c - 4);
+    else
+        return tx + TD * c;
+}
+
 // acc = A @ B for the thread's RT x RT tile; A, B are N x N row-major in
 // shared memory.
 template <int N, int TD>
@@ -113,8 +129,23 @@ __device__ __forceinline__ void tile_product(
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
             float b[RT];
+            if constexpr (N == 120 && TD == 20) {
+                const float* brow = B + (k + kk) * N;
+                const float4 b4 =
+                    *reinterpret_cast<const float4*>(brow + 4 * tx);
+                const float2 b2 =
+                    *reinterpret_cast<const float2*>(brow + 80 + 2 * tx);
+                b[0] = b4.x;
+                b[1] = b4.y;
+                b[2] = b4.z;
+                b[3] = b4.w;
+                b[4] = b2.x;
+                b[5] = b2.y;
+            } else {
 #pragma unroll
-            for (int c = 0; c < RT; ++c) b[c] = B[(k + kk) * N + tx + TD * c];
+                for (int c = 0; c < RT; ++c)
+                    b[c] = B[(k + kk) * N + tx + TD * c];
+            }
 #pragma unroll
             for (int r = 0; r < RT; ++r) {
                 const float av = kk == 0 ? a[r].x : kk == 1 ? a[r].y
@@ -140,7 +171,7 @@ __device__ __forceinline__ void store_step_factor(
     for (int r = 0; r < RT; ++r)
 #pragma unroll
         for (int c = 0; c < RT; ++c) {
-            const int i = ty + TD * r, j = tx + TD * c;
+            const int i = ty + TD * r, j = tile_col<N, TD>(tx, c);
             T[i * N + j] = (i == j ? two_a : 0.0f) - a2 * acc[r][c];
         }
 }
@@ -154,7 +185,7 @@ __device__ __forceinline__ void store_tile(
     for (int r = 0; r < RT; ++r)
 #pragma unroll
         for (int c = 0; c < RT; ++c)
-            X[(ty + TD * r) * N + tx + TD * c] = acc[r][c];
+            X[(ty + TD * r) * N + tile_col<N, TD>(tx, c)] = acc[r][c];
 }
 
 // The third N x N slot of the block's shared memory, where the caller
@@ -164,45 +195,31 @@ __device__ __forceinline__ float* input_slot(float* smem) {
     return smem + 2 * N * N;
 }
 
-// On entry input_slot(smem) holds the unbalanced M of this block's
-// scenario (visible to every thread). Computes the basin-safeguarded
-// (scaled) Newton-Schulz inverse and writes the unbalanced S X S to
-// `out`.
-//   - M_b = S M S with S = diag(M)^-1/2, c0 = 1 / (1.05 ||M_b||_inf);
-//   - with a warm start x0 (unbalanced, or null): the basin test on
-//     M_b X0_b (min diagonal > 1e-4 and max absolute row sum < 3); an
-//     accepted start takes a plain Newton step, a rejected one the scaled
-//     cold step; with an empty schedule the result is X0_b or c0 I;
+// The schedule on an already balanced matrix, all N x N in shared memory:
+// on entry `mb` holds M_b and, with a warm start (`warm`), `xs` the
+// balanced X0_b (both visible to every thread); `tm` is product scratch and
+// `red` the reduction scratch. On exit `xs` holds the balanced X, every
+// thread is past a barrier, and `tm` is free.
+//   - c0 = 1 / (1.05 ||M_b||_inf);
+//   - with a warm start: the basin test on M_b X0_b (min diagonal > 1e-4
+//     and max absolute row sum < 3); an accepted start takes a plain
+//     Newton step, a rejected one the scaled cold step; with an empty
+//     schedule the result is X0_b or c0 I;
 //   - without one: c0 I, its first step (scaled or plain) folded
 //     analytically;
 //   - then the rest of the schedule; scenarios that accepted their warm
 //     start run plain Newton (a = 1).
 template <int N, int TD>
-__device__ __forceinline__ void balanced_schulz(
-        float* smem, const float* __restrict__ x0, const Schedule& sched,
-        int n_coeffs, float* __restrict__ out) {
+__device__ __forceinline__ void schulz_core(const float* mb, float* xs,
+                                            float* tm, float* red, bool warm,
+                                            const Schedule& sched,
+                                            int n_coeffs) {
     using T = Tile<N, TD>;
     constexpr int RT = T::RT;
     constexpr int NTHREADS = T::NTHREADS;
-    float* mb = smem;               // balanced M_b
-    float* xs = mb + N * N;         // iterate X (balanced)
-    float* tm = xs + N * N;         // the input M, then product scratch
-    float* sv = tm + N * N;         // balance scale s = diag(M)^-1/2
-    float* red = sv + N;            // reduction scratch
-
     const int tid = threadIdx.x;
     const int ty = tid / TD, tx = tid % TD;
-    const bool warm = x0 != nullptr;
 
-    // Jacobi balance M_b = M * s_i s_j and its inf-norm
-    if (tid < N) sv[tid] = rsqrtf(tm[tid * N + tid]);
-    __syncthreads();
-    for (int idx = tid; idx < N * N; idx += NTHREADS) {
-        const int i = idx / N, j = idx % N;
-        mb[idx] = tm[idx] * (sv[i] * sv[j]);
-        if (warm) xs[idx] = x0[idx] / (sv[i] * sv[j]);
-    }
-    __syncthreads();
     float row = 0.0f;
     if (tid < N)
         for (int j = 0; j < N; ++j) row += fabsf(mb[tid * N + j]);
@@ -277,6 +294,36 @@ __device__ __forceinline__ void balanced_schulz(
         store_tile<N, TD>(xs, ty, tx, acc);
         __syncthreads();
     }
+}
+
+// On entry input_slot(smem) holds the unbalanced M of this block's
+// scenario (visible to every thread). Computes the basin-safeguarded
+// (scaled) Newton-Schulz inverse (schulz_core) of M_b = S M S with
+// S = diag(M)^-1/2, from the unbalanced warm start x0 (or null), and
+// writes the unbalanced S X S to `out`.
+template <int N, int TD>
+__device__ __forceinline__ void balanced_schulz(
+        float* smem, const float* __restrict__ x0, const Schedule& sched,
+        int n_coeffs, float* __restrict__ out) {
+    constexpr int NTHREADS = Tile<N, TD>::NTHREADS;
+    float* mb = smem;               // balanced M_b
+    float* xs = mb + N * N;         // iterate X (balanced)
+    float* tm = xs + N * N;         // the input M, then product scratch
+    float* sv = tm + N * N;         // balance scale s = diag(M)^-1/2
+
+    const int tid = threadIdx.x;
+    const bool warm = x0 != nullptr;
+
+    // Jacobi balance M_b = M * s_i s_j
+    if (tid < N) sv[tid] = rsqrtf(tm[tid * N + tid]);
+    __syncthreads();
+    for (int idx = tid; idx < N * N; idx += NTHREADS) {
+        const int i = idx / N, j = idx % N;
+        mb[idx] = tm[idx] * (sv[i] * sv[j]);
+        if (warm) xs[idx] = x0[idx] / (sv[i] * sv[j]);
+    }
+    __syncthreads();
+    schulz_core<N, TD>(mb, xs, tm, sv + N, warm, sched, n_coeffs);
 
     // unbalance: M^-1 = S X S
     for (int idx = tid; idx < N * N; idx += NTHREADS) {

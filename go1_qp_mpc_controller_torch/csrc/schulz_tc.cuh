@@ -1,11 +1,13 @@
-// The tensor-core Schulz body of K3 at n = 120 (csrc/schulz_batch.cu) and
-// of K5 (csrc/schulz_balanced.cu): Jacobi balance, basin-safeguarded
-// (scaled) Newton-Schulz schedule and unbalance of one matrix padded to
-// NP = 128, on one of two routes:
+// The tensor-core Schulz body of K3 at n = 120 (csrc/schulz_batch.cu), of
+// K5 (csrc/schulz_balanced.cu) and of K1's schedules with a 3xTF32 step
+// (csrc/kkt_schulz.cu, which builds M from the lazy factors: the body
+// takes its matrix from a source, see DenseSource): Jacobi balance,
+// basin-safeguarded (scaled) Newton-Schulz schedule and unbalance of one
+// matrix padded to NP = 128, on one of two routes:
 //
-//   - the CTA route: one 256-thread block owns the whole matrix (K3 above
-//     the crossover batch, one block per scenario); its middle products
-//     are wgmma (WgProduct);
+//   - the CTA route: one 256-thread block owns the whole matrix (K1 at
+//     any batch, K3 above its crossover batch, one block per scenario);
+//     its middle products are wgmma (WgProduct);
 //   - the cluster route: a cluster of CLUSTER = 8 blocks owns one matrix,
 //     block r the columns 16 r .. 16 r + 15 of every product (K5 always,
 //     K3 up to the crossover, where one block per matrix would leave most
@@ -501,28 +503,44 @@ __device__ void minmax(float lo, float hi, float* red, float* cred,
     __syncthreads();
 }
 
-// The common start of both routes, run by every block on the whole
-// matrix: s = diag(M)^-1/2 (1 without BALANCE), M_b = S M S padded with
-// an identity block into `mb`, the warm start X0_b = S^-1 X0 S^-1 into
-// `xs` (if x0), and c0 = 1 / (1.05 ||M_b||_inf) (the same bits in every
-// block).
-template <bool BALANCE>
-__device__ float load_balanced(const float* __restrict__ m,
-                               const float* __restrict__ x0, int n,
-                               float* mb, float* xs, float* sv, float* red) {
-    const int tid = threadIdx.x;
-    for (int i = tid; i < NP; i += NTHREADS)
-        sv[i] = (BALANCE && i < n) ? rsqrtf(m[i * n + i]) : 1.0f;
-    __syncthreads();
-    for (int idx = tid; idx < NP * NP; idx += NTHREADS) {
-        const int i = idx / NP, j = idx % NP;
-        float v = i == j ? 1.0f : 0.0f;
-        if (i < n && j < n) {
-            v = m[i * n + j];
-            if constexpr (BALANCE) v *= sv[i] * sv[j];
+// The matrix source of load_balanced for K3 and K5: a dense n x n
+// row-major matrix in device memory. A source's build<BALANCE>(n, mb, sv)
+// writes s = diag(M)^-1/2 (1 without BALANCE, and on the padding rows) to
+// sv[0 .. NP) and M_b = S M S, padded with an identity block, to `mb`
+// (swizzled), and ends in a barrier. K1 (csrc/kkt_schulz.cu) has its own
+// source, which assembles M from the lazy factors as it balances.
+struct DenseSource {
+    const float* m;
+
+    template <bool BALANCE>
+    __device__ void build(int n, float* mb, float* sv) const {
+        const int tid = threadIdx.x;
+        for (int i = tid; i < NP; i += NTHREADS)
+            sv[i] = (BALANCE && i < n) ? rsqrtf(m[i * n + i]) : 1.0f;
+        __syncthreads();
+        for (int idx = tid; idx < NP * NP; idx += NTHREADS) {
+            const int i = idx / NP, j = idx % NP;
+            float v = i == j ? 1.0f : 0.0f;
+            if (i < n && j < n) {
+                v = m[i * n + j];
+                if constexpr (BALANCE) v *= sv[i] * sv[j];
+            }
+            mb[swz(i, j)] = v;
         }
-        mb[swz(i, j)] = v;
+        __syncthreads();
     }
+};
+
+// The common start of both routes, run by every block on the whole
+// matrix: s and M_b from `src` (see DenseSource), the warm start
+// X0_b = S^-1 X0 S^-1 padded with an identity block into `xs` (if x0), and
+// c0 = 1 / (1.05 ||M_b||_inf) (the same bits in every block).
+template <bool BALANCE, class Src>
+__device__ float load_balanced(const Src& src, const float* __restrict__ x0,
+                               int n, float* mb, float* xs, float* sv,
+                               float* red) {
+    const int tid = threadIdx.x;
+    src.template build<BALANCE>(n, mb, sv);
     if (x0 != nullptr)
         for (int idx = tid; idx < NP * NP; idx += NTHREADS) {
             const int i = idx / NP, j = idx % NP;
@@ -611,8 +629,8 @@ __device__ __forceinline__ void cta_step(const float* mb, float* xs,
 //
 // Shared memory: M_b, X and T (3 x 64 KB), the wgmma staging (32 KB), s and
 // the reduction scratch.
-template <bool BALANCE>
-__device__ void cta_schulz(float* smem, const float* __restrict__ m,
+template <bool BALANCE, class Src>
+__device__ void cta_schulz(float* smem, const Src& src,
                            const float* __restrict__ x0, int n,
                            const schulz::Schedule& sched, int n_coeffs,
                            int hi_tail, float* __restrict__ out) {
@@ -624,7 +642,7 @@ __device__ void cta_schulz(float* smem, const float* __restrict__ m,
     float* red = sv + NP;
     const int tid = threadIdx.x;
     const bool warm = x0 != nullptr;
-    const float c0 = load_balanced<BALANCE>(m, x0, n, mb, xs, sv, red);
+    const float c0 = load_balanced<BALANCE>(src, x0, n, mb, xs, sv, red);
 
     int start = 0;
     bool ok = false;
@@ -772,9 +790,8 @@ __device__ __forceinline__ void cluster_step(const float* mb,
 // Shared memory: M_b and two X buffers (3 x 64 KB), the T panel and the B
 // panel's hi / lo split (3 x 8 KB), s, the reduction scratch and slots,
 // the partial row sums.
-template <bool BALANCE>
-__device__ void cluster_schulz(float* smem, int rank,
-                               const float* __restrict__ m,
+template <bool BALANCE, class Src>
+__device__ void cluster_schulz(float* smem, int rank, const Src& src,
                                const float* __restrict__ x0, int n,
                                const schulz::Schedule& sched, int n_coeffs,
                                int hi_tail, float* __restrict__ out) {
@@ -794,7 +811,7 @@ __device__ void cluster_schulz(float* smem, int rank,
 
     // a peer's shared memory exists before anyone writes to it
     cluster.sync();
-    const float c0 = load_balanced<BALANCE>(m, x0, n, mb, cur, sv, red);
+    const float c0 = load_balanced<BALANCE>(src, x0, n, mb, cur, sv, red);
 
     int start = 0;
     bool ok = false;
@@ -877,18 +894,20 @@ __device__ void cluster_schulz(float* smem, int rank,
     }
 }
 
-// The inverse of one matrix by one block (CL = false, rank 0) or by the
-// block of rank `rank` of a cluster (CL = true).
-template <bool CL, bool BALANCE>
-__device__ void tc_schulz(float* smem, int rank, const float* __restrict__ m,
+// The inverse of one matrix, M from `src` (DenseSource or K1's), by one
+// block (CL = false, rank 0) or by the block of rank `rank` of a cluster
+// (CL = true).
+template <bool CL, bool BALANCE, class Src>
+__device__ void tc_schulz(float* smem, int rank, const Src& src,
                           const float* __restrict__ x0, int n,
                           const schulz::Schedule& sched, int n_coeffs,
                           int hi_tail, float* __restrict__ out) {
     if constexpr (CL)
-        cluster_schulz<BALANCE>(smem, rank, m, x0, n, sched, n_coeffs,
+        cluster_schulz<BALANCE>(smem, rank, src, x0, n, sched, n_coeffs,
                                 hi_tail, out);
     else
-        cta_schulz<BALANCE>(smem, m, x0, n, sched, n_coeffs, hi_tail, out);
+        cta_schulz<BALANCE>(smem, src, x0, n, sched, n_coeffs, hi_tail,
+                            out);
 }
 
 // Launch `kernel` on `matrices` clusters of `cluster` blocks (the kernels

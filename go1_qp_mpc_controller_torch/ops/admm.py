@@ -350,7 +350,8 @@ def solve_warm_fused(lazy, warm, settings, mu):
     tiled4, dmain, off1, off2, cost = _kkt_kernel_operands(
         lazy, rho_vec, settings.sigma, mu)
     minv = kkt_schulz.kkt_schulz(tiled4, dmain, off1, off2, cost,
-                                 x0=warm.minv, coeffs=coeffs)
+                                 x0=warm.minv, coeffs=coeffs,
+                                 hi_tail=settings.schulz_hi_tail)
     qbar = cost[:, None] * lazy.gradient
     return _warm_finish(minv, hess, lazy.gradient, cost, qbar, lb_f, ub_f,
                         rho, rho_vec, matvec, rmatvec, warm, settings, mu)
@@ -411,7 +412,8 @@ def solve_segmented_fused(lazy, settings, mu, warm):
         tiled4, dmain, off1, off2, cost_k = _kkt_kernel_operands(
             lazy, rho_vec, sigma, mu)
         minv = kkt_schulz.kkt_schulz(tiled4, dmain, off1, off2, cost_k,
-                                     x0=minv, coeffs=coeffs)
+                                     x0=minv, coeffs=coeffs,
+                                     hi_tail=settings.schulz_hi_tail)
         rho_of_minv = rho
         x, z, y = _iterate(minv, x, z, y, qbar, lb_f, ub_f, rho_vec,
                            iters_k, settings, mu, matvec, rmatvec)
@@ -479,7 +481,8 @@ def solve_cold_fused(lazy, settings, mu, rho0):
         lazy, rho_vec, settings.sigma, mu)
     qbar = cost[:, None] * lazy.gradient
     minv = kkt_schulz.kkt_schulz(tiled4, dmain, off1, off2, cost,
-                                 coeffs=_scaled_schulz_coeffs(l0))
+                                 coeffs=_scaled_schulz_coeffs(l0),
+                                 hi_tail=settings.schulz_hi_tail)
     warm0 = WarmState(x=torch.zeros_like(lazy.gradient),
                       y=torch.zeros_like(lazy.lb), rho=rho, minv=minv)
     return _warm_finish(minv, hess, lazy.gradient, cost, qbar, lb_f, ub_f,

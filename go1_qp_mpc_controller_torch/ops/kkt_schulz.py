@@ -20,6 +20,16 @@ Port of the JAX package's Pallas kernel
 hand-written Hopper kernel ``csrc/kkt_schulz.cu``; a CPU input takes the
 plain PyTorch version ``kkt_schulz_plain`` below (any dtype). Any other
 input raises.
+
+Precision, as the JAX package's: the steps before the last ``hi_tail``
+(the TPU's bf16x3) run 3xTF32 on the card's tensor cores (emulated on the
+CPU by :func:`matmul_3xtf32`, passed as ``middle_matmul``); the tail, the
+basin test and the accepted warm step run FP32. The card takes one of
+two routes (:func:`route`), by schedule: one with a 3xTF32 step runs
+``csrc/schulz_tc.cuh``'s one-block body, a block a scenario ("cta"); one
+without runs the FP32 body with bulk-staged operands ("fp32"). Launches
+are counted in :data:`launches` and by route in :data:`route_launches`.
+A launch that fails raises; there is no fallback route.
 """
 
 import ctypes
@@ -32,14 +42,33 @@ from go1_qp_mpc_controller_torch.ops import _build
 
 N = srb.H * srb.NU          # 120
 MAX_COEFFS = 64             # schedule capacity of the CUDA kernel
+ROUTES = ("cta", "fp32")
+# the launch's route argument for each (see csrc/kkt_schulz.cu)
+BLOCKS = {"cta": 1, "fp32": 0}
 
-# launches of the CUDA kernel since the last reset (CPU calls do not count)
+# launches of the CUDA kernel since the last reset (CPU calls do not
+# count), in all and by route
 launches = 0
+route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def reset_launches():
     global launches
     launches = 0
+    route_launches.update(dict.fromkeys(ROUTES, 0))
+
+
+def default_hi_tail(coeffs, hi_tail=None):
+    """The FP32 tail of a schedule: ``hi_tail`` (default 2), at most its
+    length (``pallas_admm.schulz_inverse_kkt_batch``'s rule)."""
+    return min(len(coeffs), 2 if hi_tail is None else hi_tail)
+
+
+def route(coeffs, hi_tail=None):
+    """The route a CUDA launch of K1 takes for the schedule ``coeffs`` with
+    FP32 tail ``hi_tail``, at any batch: "cta" for a schedule with a
+    3xTF32 step, "fp32" for one without."""
+    return "cta" if default_hi_tail(coeffs, hi_tail) < len(coeffs) else "fp32"
 
 
 def band_matrix(main, off1, off2):
@@ -175,10 +204,12 @@ def schulz_balanced_plain(m, x0=None, coeffs=(1.0,), hi_tail=None,
 
 
 def kkt_schulz_plain(tiled, dmain, off1, off2, cost, x0=None,
-                     coeffs=(1.0,)):
-    """Plain PyTorch version of K1 (same signature as :func:`kkt_schulz`)."""
+                     coeffs=(1.0,), hi_tail=None, middle_matmul=None):
+    """Plain PyTorch version of K1 (the arguments of :func:`kkt_schulz`);
+    ``hi_tail`` and ``middle_matmul`` as in :func:`schulz_balanced_core`
+    (with ``middle_matmul=matmul_3xtf32``, the card's middle steps)."""
     m = kkt_build_plain(tiled, dmain, off1, off2, cost)
-    return schulz_balanced_plain(m, x0, coeffs)
+    return schulz_balanced_plain(m, x0, coeffs, hi_tail, middle_matmul)
 
 
 @functools.lru_cache(maxsize=None)
@@ -186,7 +217,8 @@ def _lib():
     lib = _build.load("kkt_schulz")
     ptr = ctypes.c_void_p
     lib.kkt_schulz_launch.argtypes = [ptr] * 8 + [
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int, ptr]
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ptr]
     lib.kkt_schulz_launch.restype = ctypes.c_int
     return lib
 
@@ -203,7 +235,36 @@ def check_cuda_f32(kernel, name, t, shape):
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def kkt_schulz(tiled, dmain, off1, off2, cost, x0=None, coeffs=(1.0,)):
+def _launch(tiled, dmain, off1, off2, cost, x0, coeffs, hi_tail, blocks):
+    """One launch of the CUDA kernel on the route ``blocks``
+    (:data:`BLOCKS`: 0 "fp32", 1 "cta"; the kernel refuses any other
+    value); raises if the launch fails."""
+    batch = tiled.shape[0]
+    if blocks == 0:
+        # the bulk copies of the "fp32" route need 16-byte aligned rows
+        for name, t in (("tiled", tiled), ("dmain", dmain), ("off1", off1),
+                        ("off2", off2), ("x0", x0)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(f"kkt_schulz: {name} must be 16-byte "
+                                 f"aligned on the fp32 route")
+    out = torch.empty((batch, N, N), dtype=torch.float32,
+                      device=tiled.device)
+    sched = (ctypes.c_float * len(coeffs))(*coeffs)
+    rc = _lib().kkt_schulz_launch(
+        tiled.data_ptr(), dmain.data_ptr(), off1.data_ptr(),
+        off2.data_ptr(), cost.data_ptr(),
+        srb._const("coeffs_e", tiled).data_ptr(),
+        None if x0 is None else x0.data_ptr(), out.data_ptr(),
+        sched, len(coeffs), hi_tail, batch, blocks,
+        torch.cuda.current_stream(tiled.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kkt_schulz: CUDA launch with blocks={blocks} "
+                           f"failed with error {rc}")
+    return out
+
+
+def kkt_schulz(tiled, dmain, off1, off2, cost, x0=None, coeffs=(1.0,),
+               hi_tail=None):
     """K1 entry point: (B, n, n) unbalanced inverses of
     cost H + sigma I + C' diag(rho) C (see the module docstring).
 
@@ -211,12 +272,17 @@ def kkt_schulz(tiled, dmain, off1, off2, cost, x0=None, coeffs=(1.0,)):
       tiled: (B, 4, 12, 120); dmain, off1, off2: (B, 120); cost: (B,).
       x0: optional (B, 120, 120) unbalanced warm inverses.
       coeffs: the step schedule (1 to 64 steps).
+      hi_tail: the last steps that run full FP32 (default 2, at most the
+        schedule's length); the others run 3xTF32 on the card. The CPU
+        path runs every product in the input's dtype.
     """
     if not 0 < len(coeffs) <= MAX_COEFFS:
         raise ValueError(f"kkt_schulz: schedule of {len(coeffs)} steps; "
                          f"1..{MAX_COEFFS} supported")
+    hi_tail = default_hi_tail(coeffs, hi_tail)
     if tiled.device.type == "cpu":
-        return kkt_schulz_plain(tiled, dmain, off1, off2, cost, x0, coeffs)
+        return kkt_schulz_plain(tiled, dmain, off1, off2, cost, x0, coeffs,
+                                hi_tail)
     batch = tiled.shape[0]
     check_cuda_f32("kkt_schulz", "tiled", tiled, (batch, 4, srb.NU, N))
     for name, t in (("dmain", dmain), ("off1", off1), ("off2", off2)):
@@ -224,19 +290,13 @@ def kkt_schulz(tiled, dmain, off1, off2, cost, x0=None, coeffs=(1.0,)):
     check_cuda_f32("kkt_schulz", "cost", cost, (batch,))
     if x0 is not None:
         check_cuda_f32("kkt_schulz", "x0", x0, (batch, N, N))
-    out = torch.empty((batch, N, N), dtype=torch.float32,
-                      device=tiled.device)
     if batch == 0:
-        return out
-    sched = (ctypes.c_float * len(coeffs))(*coeffs)
-    rc = _lib().kkt_schulz_launch(
-        tiled.data_ptr(), dmain.data_ptr(), off1.data_ptr(),
-        off2.data_ptr(), cost.data_ptr(), srb._const("coeffs_e", tiled).data_ptr(),
-        None if x0 is None else x0.data_ptr(), out.data_ptr(),
-        sched, len(coeffs), batch,
-        torch.cuda.current_stream(tiled.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"kkt_schulz: CUDA launch failed with error {rc}")
+        return torch.empty((0, N, N), dtype=torch.float32,
+                           device=tiled.device)
+    way = route(coeffs, hi_tail)
+    out = _launch(tiled, dmain, off1, off2, cost, x0, coeffs, hi_tail,
+                  BLOCKS[way])
     global launches
     launches += 1
+    route_launches[way] += 1
     return out

@@ -31,6 +31,7 @@ import torch
 
 from go1_qp_mpc_controller_torch.ops import _build, kkt_schulz
 
+default_hi_tail = kkt_schulz.default_hi_tail
 SIZES = (12, 120)     # the matrix sizes the CUDA kernel is built for
 CLUSTER = 8           # blocks per matrix on the cluster route (n = 120)
 # the largest batch that takes the cluster route at n = 120; above it one
@@ -68,12 +69,6 @@ def route(n, batch, coeffs, hi_tail=None):
 
 # the launch's blocks per matrix for each route (see csrc/schulz_batch.cu)
 BLOCKS = {"cluster": CLUSTER, "cta": 1, "fp32": 0, "n12": 1}
-
-
-def default_hi_tail(coeffs, hi_tail=None):
-    """The FP32 tail of a schedule: ``hi_tail`` (default 2), at most its
-    length (``pallas_admm.schulz_inverse_batch``'s rule)."""
-    return min(len(coeffs), 2 if hi_tail is None else hi_tail)
 
 
 @functools.lru_cache(maxsize=None)

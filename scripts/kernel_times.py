@@ -3,11 +3,18 @@
 
 Imports ``chip_smoke`` and the port from ``--root`` (a checkout, e.g. one
 unpacked from ``git archive``), builds that checkout's kernels into its own
-``build/kernels/`` and runs its kernel phases (K1 to K6, those its
-``chip_smoke.py`` has) at the smoke test's batch and seeds, printing their
-lines: kernel, plain and library times beside the bounds. K6 runs on the
-operands of a cold solve and five warm ticks of the dense chain's
-scenarios (as the card-only tests make them). Every time is the median of
+``build/kernels/`` and times them at the smoke test's seeds: K1 through
+its entry point ``kkt_schulz.kkt_schulz`` on the three schedules of
+``chip_smoke.k1_phase`` (cold l0=1e-3, warm refine=1 and warm l0=1e-4,
+the wrapper's default ``hi_tail``) at batch 4096, 128 and 1, and K2
+through ``observe_ekf.observe_ekf`` at batch 4096 and 1, each with the
+route its wrapper takes where it has routes; K3 at n = 12 and K4 at batch
+1 (the balance QP's and the estimator's launches) through their entry
+points; then the checkout's K3 to K6
+phases (those its ``chip_smoke.py`` has), printing their lines: kernel,
+plain and library times beside the bounds. K6 runs on the operands of a
+cold solve and five warm ticks of the dense chain's scenarios (as the
+card-only tests make them). Every time is the median of
 5 spans of ``chip_smoke.REPS`` calls, one function's spans back to back,
 whichever checkout's timer the phase calls (``chip_smoke.py`` itself
 interleaves kernel, plain version and library call, which leaves a small
@@ -79,6 +86,60 @@ def k6_operands(chip_smoke, batch, seed, device):
     return ops
 
 
+def k1_k2_times(chip_smoke, seed, device):
+    """Lines of K1's and K2's kernel times by schedule and batch, through
+    the checkout's entry points (the same calls on any commit of the
+    port)."""
+    import torch
+    from go1_qp_mpc_controller_torch.ops import admm, kkt_schulz, observe_ekf
+
+    batch = chip_smoke.BATCH
+    coeffs = admm._scaled_schulz_coeffs
+    ops = chip_smoke.random_kkt_operands(
+        batch, torch.Generator().manual_seed(seed), device)
+    x_good = kkt_schulz.kkt_schulz(*ops, coeffs=coeffs(1e-4))
+    bad = (torch.arange(batch, device=device) % 8 == 0)[:, None, None]
+    x0 = torch.where(bad, -x_good, x_good).contiguous()
+    route = getattr(kkt_schulz, "route", lambda c: "one block")
+    lines = []
+    for b in (batch, 128, 1):
+        ops_b = [t[:b].contiguous() for t in ops]
+        x0_b = x0[:b].contiguous()
+        for name, xw, sched in (("cold_l0=1e-3", None, coeffs(1e-3)),
+                                ("warm_refine=1", x0_b, (1.0,)),
+                                ("warm_l0=1e-4", x0_b, coeffs(1e-4))):
+            ms = median_ms(lambda: kkt_schulz.kkt_schulz(*ops_b, x0=xw,
+                                                         coeffs=sched))
+            lines.append(f"K1 {name} batch {b} route {route(sched)}: "
+                         f"kernel_ms {ms:.4f}")
+    args = chip_smoke.random_ekf_inputs(
+        batch, torch.Generator().manual_seed(seed + 1), device)
+    for b in (batch, 1):
+        args_b = [t[:b].contiguous() for t in args[:9]] + args[9:]
+        ms = median_ms(lambda: observe_ekf.observe_ekf(*args_b))
+        lines.append(f"K2 observe+EKF batch {b}: kernel_ms {ms:.4f}")
+    return lines
+
+
+def batch1_times(chip_smoke, seed, device):
+    """Lines of K3 at n = 12 (20 plain steps, cold) and K4 (the EKF
+    innovation inverse, the estimator's schedule) at batch 1, through the
+    checkout's entry points."""
+    import torch
+    from go1_qp_mpc_controller_torch.ops import (admm, ekf, schulz_batch,
+                                                 schulz_lanes)
+
+    gen = torch.Generator().manual_seed(seed)
+    m12 = chip_smoke.random_balance_kkts(1, gen, device)
+    s28 = torch.tensor(chip_smoke.spread_spd(1, 28, seed), device=device)
+    ms12 = median_ms(lambda: schulz_batch.schulz_inverse_batch(
+        m12, coeffs=(1.0,) * 20))
+    c28 = admm._scaled_schulz_coeffs(ekf.SINV_L0)
+    ms28 = median_ms(lambda: schulz_lanes.schulz_inverse_lanes(s28, c28))
+    return [f"K3 n=12 cold 20 steps batch 1: kernel_ms {ms12:.4f}",
+            f"K4 spread SPD batch 1: kernel_ms {ms28:.4f}"]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", required=True)
@@ -103,9 +164,10 @@ def main(argv=None):
     gen = lambda k: torch.Generator().manual_seed(args.seed + k)
     out = lambda lines: [print(f"[{args.root}] {line}", flush=True)
                          for line in lines]
-    for name, k in (("k1_phase", 0), ("k2_phase", 1), ("k3_phase", 2)):
-        out(getattr(chip_smoke, name)(chip_smoke.BATCH, gen(k), device,
-                                      chip_smoke.REPS)[1])
+    out(k1_k2_times(chip_smoke, args.seed, device))
+    out(batch1_times(chip_smoke, args.seed + 8, device))
+    out(chip_smoke.k3_phase(chip_smoke.BATCH, gen(2), device,
+                            chip_smoke.REPS)[1])
     if hasattr(chip_smoke, "k4_phase"):
         out(chip_smoke.k4_phase(chip_smoke.BATCH, gen(5), args.seed + 5,
                                 device, chip_smoke.REPS)[1])

@@ -18,9 +18,9 @@ directions); on y within 0.1 x (1 + max|y|) of the plain version. K4
 5e-4 x max|plain| per matrix (tests/test_pallas_admm.py:217-219), or on
 ill-conditioned innovation matrices twice the plain version's distance to
 the float64 schedule; K5 5e-6 (tests/test_pallas_admm.py:126-156). K3
-at n = 120 and K5 are also held against their plain versions with the
-kernels' 3xTF32 middle products (``kkt_schulz.matmul_3xtf32``), at
-``chip_smoke.K3_EMU_TOL`` and ``chip_smoke.K5_EMU_TOL``.
+at n = 120, K1 and K5 are also held against their plain versions with
+the kernels' 3xTF32 middle products (``kkt_schulz.matmul_3xtf32``), at
+``chip_smoke.K3_EMU_TOL``, ``K1_EMU_TOL`` and ``K5_EMU_TOL``.
 """
 
 import sys
@@ -128,6 +128,74 @@ def _k2_inputs(batch, device, seed=1):
 
 def test_k2_kernel_matches_plain(card):
     args = _k2_inputs(300, card)
+    got = observe_ekf.observe_ekf(*args)
+    want = observe_ekf.observe_ekf_plain(*args)
+    for name, _ in observe_ekf.OUTPUTS:
+        tol = 5e-4 if name in ("x", "P") else 1e-5
+        atol = tol * max(1.0, float(want[name].abs().max()))
+        assert float((got[name] - want[name]).abs().max()) <= atol, name
+
+
+@pytest.mark.parametrize("hi_tail", [0, 1, 2])
+@pytest.mark.parametrize("batch", [1, 17, 128, 256])
+@pytest.mark.parametrize("variant", ["cold", "warm", "warm_scaled"])
+def test_k1_routes_match_plain(card, batch, variant, hi_tail):
+    """K1 at FP32 tail ``hi_tail`` on the route the wrapper picks
+    (``kkt_schulz.route``), one counted launch, and on the other route for
+    the same schedule: within 3e-4 of the float32 plain version per
+    scenario in balanced coordinates and within ``chip_smoke.K1_EMU_TOL``
+    of the emulation with the kernel's 3xTF32 middle steps."""
+    ops = _k1_operands(batch, card, seed=batch)
+    c3 = admm._scaled_schulz_coeffs(1e-3)
+    c4 = admm._scaled_schulz_coeffs(1e-4)
+    conv = kkt_schulz.kkt_schulz_plain(*ops, coeffs=c4)
+    bad = (torch.arange(batch, device=card) % 4 == 0)[:, None, None]
+    x0 = torch.where(bad, -conv, conv).contiguous()
+    x0, coeffs = {"cold": (None, c3), "warm": (x0, (1.0,)),
+                  "warm_scaled": (x0, c4)}[variant]
+    tail = kkt_schulz.default_hi_tail(coeffs, hi_tail)
+    m = kkt_schulz.kkt_build_plain(*ops)
+    want = kkt_schulz.kkt_schulz_plain(*ops, x0=x0, coeffs=coeffs)
+    emu = kkt_schulz.kkt_schulz_plain(*ops, x0=x0, coeffs=coeffs,
+                                      hi_tail=tail,
+                                      middle_matmul=kkt_schulz.matmul_3xtf32)
+
+    def check(got, against):
+        assert torch.isfinite(got).all()
+        assert float(_balanced_error(got, want, m).max()) <= 3e-4
+        assert (float(_balanced_error(got, against, m).max())
+                <= chip_smoke.K1_EMU_TOL)
+
+    kkt_schulz.reset_launches()
+    way = kkt_schulz.route(coeffs, tail)
+    check(kkt_schulz.kkt_schulz(*ops, x0=x0, coeffs=coeffs, hi_tail=tail),
+          emu)
+    assert kkt_schulz.launches == 1 and kkt_schulz.route_launches[way] == 1
+    # the other route: "cta" runs an all-FP32 schedule on the tensor-core
+    # body's FP32 steps; "fp32" runs every step FP32 whatever the tail
+    if way == "cta":
+        check(kkt_schulz._launch(*ops, x0, coeffs, len(coeffs),
+                                 kkt_schulz.BLOCKS["fp32"]), want)
+    else:
+        check(kkt_schulz._launch(*ops, x0, coeffs, tail,
+                                 kkt_schulz.BLOCKS["cta"]), want)
+
+
+def test_k1_refuses_a_route_it_does_not_have(card):
+    """The kernel takes blocks 0 ("fp32") and 1 ("cta") only; any other
+    value is refused before a launch and the wrapper raises."""
+    ops = _k1_operands(2, card)
+    for blocks in (2, 8, -1):
+        with pytest.raises(RuntimeError, match=f"blocks={blocks} "):
+            kkt_schulz._launch(*ops, None, (1.0,) * 4, 2, blocks)
+    got = kkt_schulz.kkt_schulz(*ops, coeffs=(1.0,) * 4)
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("batch", [1, 5])
+def test_k2_small_batches_match_plain(card, batch):
+    """One scenario, and a batch that leaves a block's last warps idle."""
+    args = _k2_inputs(batch, card, seed=batch)
     got = observe_ekf.observe_ekf(*args)
     want = observe_ekf.observe_ekf_plain(*args)
     for name, _ in observe_ekf.OUTPUTS:

@@ -238,6 +238,7 @@ def rtb():
 
 
 def test_bridge_is_the_ports_own_build():
+    bridge.build()
     path = bridge.library_path()
     assert path.exists() and path.parent.name == "rt_bridge"
     assert "go1_qp_mpc_controller_tpu" not in str(path)

@@ -175,11 +175,12 @@ def _trot_kkt_calls(ticks=90, walk_from=20):
     calls, tick = [], [0]
     plain = kkt_schulz.kkt_schulz
 
-    def record(tiled, dmain, off1, off2, cost, x0=None, coeffs=(1.0,)):
+    def record(tiled, dmain, off1, off2, cost, x0=None, coeffs=(1.0,),
+               hi_tail=None):
         if tick[0] >= walk_from:
             calls.append((kkt_schulz.kkt_build_plain(tiled, dmain, off1, off2,
                                                      cost), x0, coeffs))
-        return plain(tiled, dmain, off1, off2, cost, x0, coeffs)
+        return plain(tiled, dmain, off1, off2, cost, x0, coeffs, hi_tail)
 
     def command(i, ctrl):
         tick[0] = i
