@@ -98,6 +98,9 @@ POLISHED = dict(seg_iters=25, segments=3)
 # 0.1 (1 + max|y_plain|)
 K6_TOL = 1e-3
 K6_F64_TOL = 2e-3
+# K6 is also held at these heads of the batch: one robot's batch and a
+# partial wave of the persistent grid
+K6_BATCHES = (133, 1)
 # K3 (n = 120) and K5 against the plain version that emulates their 3xTF32
 # middle products (kkt_schulz.matmul_3xtf32): K3 per scenario in balanced
 # coordinates, 10x tighter than its float32 gate (3e-4); K5 half its 5e-6.
@@ -125,6 +128,9 @@ ROUTE_BATCHES = (1, 2, 4, 8, 12, 16, 32)
 # meets) cannot hold there
 K4_S_TOL = 2.5e-3
 K4_S_RES_TOL = 4e-3
+# K4 is also held at these heads of its batch: the estimator's batch and a
+# partial wave
+K4_BATCHES = (33, 1)
 
 
 def _fail(msg):
@@ -896,7 +902,7 @@ def condense(scn, x0, dense):
     from go1_qp_mpc_controller_torch.models import srb
 
     batch = x0.shape[0]
-    rot = torch.eye(3, device=x0.device).expand(batch, 3, 3)
+    rot = torch.eye(3, dtype=x0.dtype, device=x0.device).expand(batch, 3, 3)
     a_d, b_d = srb.discretize(
         srb.calculate_A_c(x0[:, 0:3]),
         srb.calculate_B_c(scn["mass"][:, None, None], scn["inertia"], rot,
@@ -906,8 +912,25 @@ def condense(scn, x0, dense):
               scn["r_weights"], scn["contacts"])
 
 
-def _take(tree, n):
-    return type(tree)(*[a[:n] for a in tree])
+def tight_reference(scn, x0, n):
+    """First-step GRFs (n, 12) of the tight polished solve (bench.py:91-94:
+    dense ``mpc_solve``, 4 segments x 80 iterations, polished with inv) of
+    the first ``n`` scenarios' QPs at start state ``x0``, condensed and
+    solved in float64 on the CPU by the kernels' plain versions: a
+    reference that no kernel's rounding moves, the same for any checkout
+    with the same scenarios."""
+    import torch
+    from go1_qp_mpc_controller_torch.ops import admm
+
+    batch = x0.shape[0]
+    f64 = lambda v: v.cpu().double() if v.is_floating_point() else v.cpu()
+    sub = {k: f64(v[:n] if v.shape[0] == batch else v)
+           for k, v in scn.items()}
+    settings = admm.ADMMSettings(seg_iters=80, segments=4, polish=True,
+                                 polish_solver="inv")
+    sol = admm.mpc_solve(condense(sub, f64(x0[:n]), dense=True), settings,
+                         mu=sub["mu"])
+    return sol.x[:, :12]
 
 
 def warm_gap(got, want):
@@ -925,8 +948,8 @@ def dense_chain_phase(batch, seed, device, reps):
     K1), then ``CHAIN_TICKS`` warm ticks of ``mpc_solve_warm_batch`` (K3
     refinement + K6) with the bench.py:503-504 drift, timed; the first and
     last ticks held against ``admm.mpc_solve_warm`` on the same inputs; the
-    last tick's GRFs against the tight polished reference (bench.py:91-94,
-    dense ``mpc_solve``, K3) on ``TIGHT_SCENARIOS`` scenarios. Then K6
+    last tick's GRFs against the tight polished reference in float64 on the
+    CPU (``tight_reference``) on ``TIGHT_SCENARIOS`` scenarios. Then K6
     alone against its plain version at 20 and 80 iterations on this
     chain's operands. Returns (path counts, K6 record, lines, passed)."""
     import torch
@@ -971,19 +994,16 @@ def dense_chain_phase(batch, seed, device, reps):
                                                  settings_warm, mu=mu)[0])
             for k, (qps, warm_in, sol) in kept.items()}
     gate = {k: dx < K6_TOL and dy < 0.1 for k, (dx, dy) in gaps.items()}
-    # the tight polished reference on the last tick's QPs
+    # the last tick's GRFs against the float64 tight reference
     qps_last, _, sol_last = kept[CHAIN_TICKS - 1]
-    tight_settings = admm.ADMMSettings(seg_iters=80, segments=4,
-                                       polish=True, polish_solver="inv")
-    tight = admm.mpc_solve(_take(qps_last, TIGHT_SCENARIOS), tight_settings,
-                           mu=mu[:TIGHT_SCENARIOS])
-    grf_err = (sol_last.x[:TIGHT_SCENARIOS, :12]
-               - tight.x[:, :12]).abs().amax(-1)
+    tight = tight_reference(scn, x0, TIGHT_SCENARIOS)
+    grf_err = (sol_last.x[:TIGHT_SCENARIOS, :12].cpu().double()
+               - tight).abs().amax(-1)
     p50 = float(grf_err.median())
     p90 = float(torch.quantile(grf_err, 0.9))
     finite = (bool(torch.isfinite(sol_last.x).all())
               and bool(torch.isfinite(sol0.x).all())
-              and bool(torch.isfinite(tight.x).all()))
+              and bool(torch.isfinite(tight).all()))
     checks = {
         "finite": finite,
         "first_tick_vs_mpc_solve_warm": gate[0],
@@ -1005,7 +1025,7 @@ def dense_chain_phase(batch, seed, device, reps):
         f"{K6_TOL:g} on x, 0.1 on y)",
         f"dense chain warm-vs-tight GRF on {TIGHT_SCENARIOS} scenarios at the "
         f"last tick: p50 {p50:.4f} N, p90 {p90:.4f} N (tight: mpc_solve, 4 "
-        f"segments x 80 iterations, polished with inv)",
+        f"segments x 80 iterations, polished with inv, float64 on the CPU)",
         f"dense chain checks {json.dumps(checks)} "
         f"{'PASS' if all(checks.values()) else 'FAIL'}"]
 
@@ -1040,49 +1060,59 @@ def k6_flops(batch, iters):
 
 def k6_phase(ops, reps):
     """K6 against its plain version at the warm and window budgets (20 and
-    80 iterations), per scenario: x within ``K6_TOL`` of the plain loop and
-    within ``K6_F64_TOL`` of the loop in float64, y within
-    0.1 (1 + max|y_plain|). Returns (lines, record, passed)."""
+    80 iterations) on ``ops`` (the dense chain's operands at batch 4096)
+    and on their first ``K6_BATCHES`` scenarios, per scenario: x within
+    ``K6_TOL`` of the plain loop and within ``K6_F64_TOL`` of the loop in
+    float64, y within 0.1 (1 + max|y_plain|). Then one scenario of batch
+    133 poisoned with NaN in qbar: its x and y come back non-finite and
+    every other scenario bit-identical to the unpoisoned run. Returns
+    (lines, record, passed)."""
     import torch
     from go1_qp_mpc_controller_torch.ops import admm_iterations
 
-    batch = ops["minv"].shape[0]
+    full = ops["minv"].shape[0]
     lines, records = [], {}
-    in_bytes = batch * (N * N + 2 * N + 4 * 200 + 1) * F32
-    out_bytes = batch * (N + 2 * 200) * F32          # x, z and y
-    for iters in (20, 80):
-        x, y = admm_iterations.admm_iterations(**ops, iters=iters)
-        xw, yw = admm_iterations.admm_iterations_plain(
-            **ops, iters=iters, alpha=1.6, sigma=1e-6)
-        torch.cuda.synchronize()
-        dx = (x - xw).abs().amax(-1)
-        dy = (y - yw).abs().amax(-1) / (1.0 + yw.abs().amax(-1))
-        x64 = loop_float64(ops, iters)
-        err_k = float((x.double() - x64).abs().amax(-1).max())
-        err_p = float((xw.double() - x64).abs().amax(-1).max())
-        finite = bool(torch.isfinite(x).all() and torch.isfinite(y).all())
-        passed = (finite and float(dx.max()) < K6_TOL
-                  and err_k <= K6_F64_TOL and float(dy.max()) < 0.1)
-        kernel_ms = cuda_ms(lambda: admm_iterations.admm_iterations(
-            **ops, iters=iters), reps)
-        plain_ms = cuda_ms(lambda: admm_iterations.admm_iterations_plain(
-            **ops, iters=iters, alpha=1.6, sigma=1e-6), reps)
-        bound_ms, bound_by = bound(k6_flops(batch, iters),
-                                   in_bytes + out_bytes)
-        lines.append(
-            f"K6 {iters} iterations: batch {batch}, worst per-scenario "
-            f"max|x_K6 - x_plain| {float(dx.max()):.3e} (tolerance "
-            f"{K6_TOL:g}; {int((dx > K6_TOL).sum())} scenarios above); "
-            f"against the float64 loop: K6 worst {err_k:.3e} (tolerance "
-            f"{K6_F64_TOL:g}), plain float32 worst {err_p:.3e}; "
-            f"max|dy|/(1+max|y|) {float(dy.max()):.3e} (tolerance 0.1); "
-            f"kernel_ms {kernel_ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms "
-            f"{bound_ms:.4f} ({bound_by}) {'PASS' if passed else 'FAIL'}")
-        records[iters] = dict(err=float((x - xw).abs().max()),
-                              kernel_ms=kernel_ms, plain_ms=plain_ms,
-                              bound_ms=bound_ms, bound_by=bound_by,
-                              passed=passed)
-    main = records[20]
+    for batch in (full,) + K6_BATCHES:
+        ops_b = {k: v[:batch] for k, v in ops.items()}
+        in_bytes = batch * (N * N + 2 * N + 4 * 200 + 1) * F32
+        out_bytes = batch * (N + 2 * 200) * F32          # x, z and y
+        for iters in (20, 80):
+            x, y = admm_iterations.admm_iterations(**ops_b, iters=iters)
+            xw, yw = admm_iterations.admm_iterations_plain(
+                **ops_b, iters=iters, alpha=1.6, sigma=1e-6)
+            torch.cuda.synchronize()
+            dx = (x - xw).abs().amax(-1)
+            dy = (y - yw).abs().amax(-1) / (1.0 + yw.abs().amax(-1))
+            x64 = loop_float64(ops_b, iters)
+            err_k = float((x.double() - x64).abs().amax(-1).max())
+            err_p = float((xw.double() - x64).abs().amax(-1).max())
+            finite = bool(torch.isfinite(x).all()
+                          and torch.isfinite(y).all())
+            passed = (finite and float(dx.max()) < K6_TOL
+                      and err_k <= K6_F64_TOL and float(dy.max()) < 0.1)
+            kernel_ms = cuda_ms(lambda: admm_iterations.admm_iterations(
+                **ops_b, iters=iters), reps)
+            plain_ms = cuda_ms(lambda: admm_iterations.admm_iterations_plain(
+                **ops_b, iters=iters, alpha=1.6, sigma=1e-6), reps)
+            bound_ms, bound_by = bound(k6_flops(batch, iters),
+                                       in_bytes + out_bytes)
+            lines.append(
+                f"K6 {iters} iterations: batch {batch}, worst per-scenario "
+                f"max|x_K6 - x_plain| {float(dx.max()):.3e} (tolerance "
+                f"{K6_TOL:g}; {int((dx > K6_TOL).sum())} scenarios above); "
+                f"against the float64 loop: K6 worst {err_k:.3e} (tolerance "
+                f"{K6_F64_TOL:g}), plain float32 worst {err_p:.3e}; "
+                f"max|dy|/(1+max|y|) {float(dy.max()):.3e} (tolerance 0.1); "
+                f"kernel_ms {kernel_ms:.4f}, plain_ms {plain_ms:.4f}, "
+                f"bound_ms {bound_ms:.4f} ({bound_by}) "
+                f"{'PASS' if passed else 'FAIL'}")
+            records[batch, iters] = dict(
+                err=float((x - xw).abs().max()), kernel_ms=kernel_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                passed=passed)
+    line, contained = k6_nan_check(ops)
+    lines.append(line)
+    main = records[full, 20]
     record = {
         "name": "admm_iterations", "route": "cuda",
         "source": "go1_qp_mpc_controller_torch/csrc/admm_iterations.cu",
@@ -1091,7 +1121,35 @@ def k6_phase(ops, reps):
         "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": None}
-    return lines, record, all(r["passed"] for r in records.values())
+    return (lines, record,
+            all(r["passed"] for r in records.values()) and contained)
+
+
+def k6_nan_check(ops, batch=133, poisoned=66, iters=20):
+    """K6 on the first ``batch`` scenarios of ``ops`` with scenario
+    ``poisoned``'s qbar set to NaN: that scenario's x and y come back
+    non-finite, every other one's x, z and y bit-identical to the run
+    without the poison. Returns (line, passed)."""
+    import torch
+    from go1_qp_mpc_controller_torch.ops import admm_iterations
+
+    ops_b = {k: v[:batch].clone() for k, v in ops.items()}
+    z0 = torch.clamp(torch.zeros_like(ops_b["lb"]), ops_b["lb"], ops_b["ub"])
+    args = lambda o: (o["minv"], o["qbar"], o["lb"], o["ub"], o["rho_vec"],
+                      o["mu"], o["x0"], z0, o["y0"], iters, 1.6, 1e-6)
+    clean = admm_iterations.admm_loop(*args(ops_b))
+    ops_b["qbar"][poisoned] = float("nan")
+    dirty = admm_iterations.admm_loop(*args(ops_b))
+    keep = torch.arange(batch, device=z0.device) != poisoned
+    same = all(torch.equal(c[keep], d[keep]) for c, d in zip(clean, dirty))
+    poisoned_out = (not bool(torch.isfinite(dirty[0][poisoned]).any())
+                    and not bool(torch.isfinite(dirty[2][poisoned]).any()))
+    passed = same and poisoned_out
+    return (f"K6 NaN containment: batch {batch}, qbar of scenario {poisoned} "
+            f"NaN, {iters} iterations from a carried z: its x and y all "
+            f"non-finite {poisoned_out}; the other {batch - 1} scenarios' x, "
+            f"z, y bit-identical to the clean run {same} "
+            f"{'PASS' if passed else 'FAIL'}"), passed
 
 
 def _walk_command(start, vx):
@@ -1344,9 +1402,10 @@ def k4_line(name, r, tol, res_tol):
 
 
 def k4_phase(batch, gen, seed, device, reps):
-    """K4 against its plain version at ``batch`` on two input sets: the
-    innovation matrices S = C P-bar C' + R of the K2 phase's EKF input
-    distribution, and spread-diagonal random SPD matrices. Gates per
+    """K4 against its plain version at ``batch`` and at its first
+    ``K4_BATCHES`` matrices on two input sets: the innovation matrices
+    S = C P-bar C' + R of the K2 phase's EKF input distribution, and
+    spread-diagonal random SPD matrices. Gates per
     matrix (``k4_check``): on the spread set the tolerances of
     tests/test_pallas_admm.py:217-219 (5e-4 x max|plain|, max|S X - I| <
     1e-3); on the innovation set ``K4_S_TOL`` and ``K4_S_RES_TOL``. Returns
@@ -1365,39 +1424,42 @@ def k4_phase(batch, gen, seed, device, reps):
         "spread_spd": (torch.tensor(spread_spd(batch, 28, seed),
                                     device=device), 5e-4, 1e-3)}
     coeffs = admm._scaled_schulz_coeffs(ekf.SINV_L0)
-    n = 28
     # 2 products of 2 n^3 a step after the folded first one; the matrix
     # read and the inverse written once
-    bound_ms, bound_by = bound(batch * 2 * (len(coeffs) - 1) * 2.0 * n ** 3,
-                               2 * batch * n * n * F32)
+    n = 28
     lines, records = [], {}
-    for name, (m, tol, res_tol) in sets.items():
-        r, passed = k4_check(m, coeffs, tol, res_tol)
-        t = cuda_times({
-            "kernel": lambda: schulz_lanes.schulz_inverse_lanes(m, coeffs),
-            "plain": lambda: schulz_lanes.schulz_inverse_lanes_plain(
-                m, coeffs),
-            "library": lambda: torch.linalg.inv(m)}, reps)
-        kernel_ms, plain_ms, library_ms = (t["kernel"], t["plain"],
-                                           t["library"])
-        lines.append(
-            f"{k4_line(name, r, tol, res_tol)}; batch {batch}, n {n}, "
-            f"{len(coeffs)} steps (the first folded); kernel_ms "
-            f"{kernel_ms:.4f}, plain_ms {plain_ms:.4f}, bound_ms "
-            f"{bound_ms:.4f} ({bound_by}), library_ms {library_ms:.4f} "
-            f"(torch.linalg.inv of the same matrices) "
-            f"{'PASS' if passed else 'FAIL'}")
-        records[name] = dict(err=r["err"], kernel_ms=kernel_ms,
-                             plain_ms=plain_ms, library_ms=library_ms,
-                             passed=passed)
-    main = records["innovation"]
+    for name, (m_full, tol, res_tol) in sets.items():
+        for b in (batch,) + K4_BATCHES:
+            m = m_full[:b]
+            r, passed = k4_check(m, coeffs, tol, res_tol)
+            t = cuda_times({
+                "kernel": lambda: schulz_lanes.schulz_inverse_lanes(m,
+                                                                    coeffs),
+                "plain": lambda: schulz_lanes.schulz_inverse_lanes_plain(
+                    m, coeffs),
+                "library": lambda: torch.linalg.inv(m)}, reps)
+            bound_ms, bound_by = bound(
+                b * 2 * (len(coeffs) - 1) * 2.0 * n ** 3, 2 * b * n * n * F32)
+            lines.append(
+                f"{k4_line(name, r, tol, res_tol)}; batch {b}, n {n}, "
+                f"{len(coeffs)} steps (the first folded); kernel_ms "
+                f"{t['kernel']:.4f}, plain_ms {t['plain']:.4f}, bound_ms "
+                f"{bound_ms:.4f} ({bound_by}), library_ms "
+                f"{t['library']:.4f} (torch.linalg.inv of the same "
+                f"matrices) {'PASS' if passed else 'FAIL'}")
+            records[name, b] = dict(err=r["err"], kernel_ms=t["kernel"],
+                                    plain_ms=t["plain"],
+                                    library_ms=t["library"],
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    passed=passed)
+    main = records["innovation", batch]
     record = {
         "name": "schulz_lanes", "route": "cuda",
         "source": "go1_qp_mpc_controller_torch/csrc/schulz_lanes.cu",
         "replaces": "go1_qp_mpc_controller_tpu/ops/pallas_admm.py:603",
         "max_abs_err": max(r["err"] for r in records.values()),
         "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": bound_ms, "bound_by": bound_by,
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"]}
     return record, lines, all(r["passed"] for r in records.values())
 

@@ -1,8 +1,8 @@
-// The FP32 Schulz body shared by K1's "fp32" route (csrc/kkt_schulz.cu),
-// K3 at n = 12 and its n = 120 "fp32" route (csrc/schulz_batch.cu) and K4
-// (csrc/schulz_lanes.cu, N = 28): Jacobi balance, basin-safeguarded
-// (scaled) Newton-Schulz schedule and unbalance of one N x N matrix, run by
-// one thread block. Counterpart of the TPU body
+// The FP32 Schulz body shared by K1's "fp32" route (csrc/kkt_schulz.cu)
+// and K3 at n = 12 and its n = 120 "fp32" route (csrc/schulz_batch.cu)
+// (K4, csrc/schulz_lanes.cu, takes only its Schedule): Jacobi balance,
+// basin-safeguarded (scaled) Newton-Schulz schedule and unbalance of one
+// N x N matrix, run by one thread block. Counterpart of the TPU body
 // go1_qp_mpc_controller_tpu/ops/pallas_admm.py::_schulz_batch_body; the
 // plain PyTorch version is ops/kkt_schulz.py::schulz_balanced_plain.
 // Schedules with a 3xTF32 step at n = 120 (K1, K3) and K5 run the

@@ -52,14 +52,38 @@ def admm_iterations_plain(minv, qbar, lb, ub, rho_vec, mu, x0, y0, iters,
     return x, y
 
 
+def persistent_grid(batch, sms, blocks_per_sm):
+    """Blocks of the kernel's persistent grid for ``batch`` scenarios:
+    every block the card holds at once (``blocks_per_sm`` on each of its
+    ``sms`` SMs), never more than one a scenario. Each block loops over
+    the scenarios b, b + grid, ..., staging the next one's inverse while
+    the current one iterates."""
+    return min(batch, sms * blocks_per_sm)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("admm_iterations")
     ptr = ctypes.c_void_p
     lib.admm_iterations_launch.argtypes = [ptr] * 12 + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ptr]
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.c_int, ptr]
     lib.admm_iterations_launch.restype = ctypes.c_int
+    lib.admm_iterations_blocks_per_sm.argtypes = []
+    lib.admm_iterations_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(device_index):
+    """(SMs, resident blocks a SM) of the card, asked once: the launch
+    then needs no query, so it can be captured in a CUDA graph."""
+    per_sm = _lib().admm_iterations_blocks_per_sm()
+    if per_sm < 1:
+        raise RuntimeError(f"admm_iterations: occupancy query failed "
+                           f"({per_sm})")
+    return (torch.cuda.get_device_properties(device_index)
+            .multi_processor_count, per_sm)
 
 
 def _launch(minv, qbar, lb, ub, rho_vec, mu, x0, z0, y0, iters, alpha,
@@ -78,6 +102,9 @@ def _launch(minv, qbar, lb, ub, rho_vec, mu, x0, z0, y0, iters, alpha,
     check("admm_iterations", "mu", mu, (batch,))
     if iters < 0:
         raise ValueError(f"admm_iterations: {iters} iterations")
+    if minv.data_ptr() % 16:
+        raise ValueError("admm_iterations: minv must be 16-byte aligned "
+                         "(its slabs are bulk-copied)")
     out = dict(device=minv.device, dtype=torch.float32)
     x = torch.empty((batch, NV), **out)
     z = torch.empty((batch, NC), **out)
@@ -89,7 +116,8 @@ def _launch(minv, qbar, lb, ub, rho_vec, mu, x0, z0, y0, iters, alpha,
         rho_vec.data_ptr(), mu.data_ptr(), x0.data_ptr(),
         None if z0 is None else z0.data_ptr(), y0.data_ptr(), x.data_ptr(),
         z.data_ptr(), y.data_ptr(), int(iters), float(alpha), float(sigma),
-        batch, torch.cuda.current_stream(minv.device).cuda_stream)
+        batch, persistent_grid(batch, *_resident(minv.device.index)),
+        torch.cuda.current_stream(minv.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"admm_iterations: CUDA launch failed with error "
                            f"{rc}")

@@ -49,15 +49,8 @@ def _lib():
     return lib
 
 
-def schulz_inverse_lanes(m, coeffs):
-    """K4 entry point: (B, n, n) unbalanced inverses of the unbalanced SPD
-    matrices ``m`` by the cold scaled schedule ``coeffs`` (1 to 64 steps,
-    ``admm._scaled_schulz_coeffs``); on the card n must be 28."""
-    if not 0 < len(coeffs) <= kkt_schulz.MAX_COEFFS:
-        raise ValueError(f"schulz_inverse_lanes: schedule of {len(coeffs)} "
-                         f"steps; 1..{kkt_schulz.MAX_COEFFS} supported")
-    if m.device.type == "cpu":
-        return schulz_inverse_lanes_plain(m, coeffs)
+def _launch(m, coeffs):
+    """One launch of the CUDA kernel; raises if the launch fails."""
     batch = m.shape[0]
     kkt_schulz.check_cuda_f32("schulz_inverse_lanes", "m", m, (batch, N, N))
     out = torch.empty((batch, N, N), dtype=torch.float32, device=m.device)
@@ -73,3 +66,15 @@ def schulz_inverse_lanes(m, coeffs):
     global launches
     launches += 1
     return out
+
+
+def schulz_inverse_lanes(m, coeffs):
+    """K4 entry point: (B, n, n) unbalanced inverses of the unbalanced SPD
+    matrices ``m`` by the cold scaled schedule ``coeffs`` (1 to 64 steps,
+    ``admm._scaled_schulz_coeffs``); on the card n must be 28."""
+    if not 0 < len(coeffs) <= kkt_schulz.MAX_COEFFS:
+        raise ValueError(f"schulz_inverse_lanes: schedule of {len(coeffs)} "
+                         f"steps; 1..{kkt_schulz.MAX_COEFFS} supported")
+    if m.device.type == "cpu":
+        return schulz_inverse_lanes_plain(m, coeffs)
+    return _launch(m, coeffs)

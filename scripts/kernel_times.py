@@ -14,14 +14,16 @@ points; then the checkout's K3 to K6
 phases (those its ``chip_smoke.py`` has), printing their lines: kernel,
 plain and library times beside the bounds. K6 runs on the operands of a
 cold solve and five warm ticks of the dense chain's scenarios (as the
-card-only tests make them). Every time is the median of
+card-only tests make them). Last, K6 at batch 1 and 133 and K4 at batch
+1, 33 and 4096 through their entry points, each also as the kernel alone
+from a profiler trace. Every time is the median of
 5 spans of ``chip_smoke.REPS`` calls, one function's spans back to back,
 whichever checkout's timer the phase calls (``chip_smoke.py`` itself
 interleaves kernel, plain version and library call, which leaves a small
 kernel's inputs out of L2 and reads slower). To compare two commits on
 one card, run it in one call for parent, change, change, parent:
 
-    python3 scripts/kernel_times.py --root build/parent
+    python3 scripts/kernel_times.py --root build/parent [--kernels k4,k6]
 """
 
 import argparse
@@ -132,19 +134,85 @@ def batch1_times(chip_smoke, seed, device):
     gen = torch.Generator().manual_seed(seed)
     m12 = chip_smoke.random_balance_kkts(1, gen, device)
     s28 = torch.tensor(chip_smoke.spread_spd(1, 28, seed), device=device)
-    ms12 = median_ms(lambda: schulz_batch.schulz_inverse_batch(
-        m12, coeffs=(1.0,) * 20))
+    c12 = (1.0,) * 20
     c28 = admm._scaled_schulz_coeffs(ekf.SINV_L0)
-    ms28 = median_ms(lambda: schulz_lanes.schulz_inverse_lanes(s28, c28))
-    return [f"K3 n=12 cold 20 steps batch 1: kernel_ms {ms12:.4f}",
-            f"K4 spread SPD batch 1: kernel_ms {ms28:.4f}"]
+    lines = []
+    for name, kernel, n, c, fn in (
+            ("K3 n=12 cold 20 steps", "schulz_batch", 12, c12,
+             lambda: schulz_batch.schulz_inverse_batch(m12, coeffs=c12)),
+            ("K4 spread SPD", "schulz_lanes_kernel", 28, c28,
+             lambda: schulz_lanes.schulz_inverse_lanes(s28, c28))):
+        # chip_smoke.k4_phase's reckoning: two products of 2 n^3 a step
+        # after the folded first one; the matrix in and the inverse out
+        bound_ms, bound_by = chip_smoke.bound(
+            2 * (len(c) - 1) * 2.0 * n ** 3, 2 * n * n * chip_smoke.F32)
+        us, count = kernel_us(fn, kernel)
+        lines.append(f"{name} batch 1: kernel_ms {median_ms(fn):.4f}, "
+                     f"kernel_us {us:.2f} (median of {count} in a profiler "
+                     f"trace), bound_ms {bound_ms:.7f} ({bound_by})")
+    return lines
+
+
+def kernel_us(fn, name, calls=20):
+    """(median device time in us, count) of the kernels whose name holds
+    ``name`` over ``calls`` calls of ``fn()``, from a torch.profiler trace:
+    the kernel alone, where CUDA events around a small batch's calls time
+    the wrapper's host pace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = [ev.time_range.end - ev.time_range.start for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and name in ev.name]
+    return (statistics.median(times) if times else float("nan"),
+            len(times))
+
+
+def small_batch_times(chip_smoke, ops, seed, device):
+    """Lines of K6 (at 20 and 80 iterations, batch 1 and 133 of ``ops``)
+    and K4 (the spread SPD set at batch 1, 33 and 4096) through the
+    checkout's entry points: CUDA-event time of the call and, from a
+    profiler trace, of the kernel alone."""
+    import torch
+    from go1_qp_mpc_controller_torch.ops import (admm, admm_iterations, ekf,
+                                                 schulz_lanes)
+
+    lines = []
+    for b in (1, 133):
+        ops_b = {k: v[:b] for k, v in ops.items()}
+        for iters in (20, 80):
+            fn = lambda: admm_iterations.admm_iterations(**ops_b,
+                                                         iters=iters)
+            us, n = kernel_us(fn, "admm_iterations_kernel")
+            lines.append(f"K6 {iters} iterations batch {b}: call_ms "
+                         f"{median_ms(fn):.4f}, kernel_us {us:.2f} "
+                         f"(median of {n} in a profiler trace)")
+    coeffs = admm._scaled_schulz_coeffs(ekf.SINV_L0)
+    m = torch.tensor(chip_smoke.spread_spd(chip_smoke.BATCH, 28, seed),
+                     device=device)
+    for b in (1, 33, chip_smoke.BATCH):
+        m_b = m[:b]
+        fn = lambda: schulz_lanes.schulz_inverse_lanes(m_b, coeffs)
+        us, n = kernel_us(fn, "schulz_lanes_kernel")
+        lines.append(f"K4 spread SPD batch {b}: call_ms {median_ms(fn):.4f}, "
+                     f"kernel_us {us:.2f} (median of {n} in a profiler "
+                     f"trace)")
+    return lines
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", required=True)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--kernels", default="k1,k2,k3,k4,k5,k6",
+                        help="comma-separated phases to run")
     args = parser.parse_args(argv)
+    run = set(args.kernels.split(","))
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
 
@@ -164,17 +232,24 @@ def main(argv=None):
     gen = lambda k: torch.Generator().manual_seed(args.seed + k)
     out = lambda lines: [print(f"[{args.root}] {line}", flush=True)
                          for line in lines]
-    out(k1_k2_times(chip_smoke, args.seed, device))
-    out(batch1_times(chip_smoke, args.seed + 8, device))
-    out(chip_smoke.k3_phase(chip_smoke.BATCH, gen(2), device,
-                            chip_smoke.REPS)[1])
-    if hasattr(chip_smoke, "k4_phase"):
+    if run & {"k1", "k2"}:
+        out(k1_k2_times(chip_smoke, args.seed, device))
+    if run & {"k3", "k4"}:
+        out(batch1_times(chip_smoke, args.seed + 8, device))
+    if "k3" in run:
+        out(chip_smoke.k3_phase(chip_smoke.BATCH, gen(2), device,
+                                chip_smoke.REPS)[1])
+    if "k4" in run and hasattr(chip_smoke, "k4_phase"):
         out(chip_smoke.k4_phase(chip_smoke.BATCH, gen(5), args.seed + 5,
                                 device, chip_smoke.REPS)[1])
-    if hasattr(chip_smoke, "k5_phase"):
+    if "k5" in run and hasattr(chip_smoke, "k5_phase"):
         out(chip_smoke.k5_phase(device, chip_smoke.REPS)[2])
-    ops = k6_operands(chip_smoke, chip_smoke.BATCH, args.seed + 3, device)
-    out(chip_smoke.k6_phase(ops, chip_smoke.REPS)[0])
+    if run & {"k4", "k6"}:
+        ops = k6_operands(chip_smoke, chip_smoke.BATCH, args.seed + 3,
+                          device)
+        if "k6" in run:
+            out(chip_smoke.k6_phase(ops, chip_smoke.REPS)[0])
+        out(small_batch_times(chip_smoke, ops, args.seed + 9, device))
 
 
 if __name__ == "__main__":

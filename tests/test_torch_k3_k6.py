@@ -234,3 +234,55 @@ def test_warm_batch_matches_xla_warm_tick_f64():
         t_admm.ADMMSettings(**settings))
     np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=0,
                                atol=1e-8 * np.abs(np.asarray(want.x)).max())
+
+
+@pytest.mark.parametrize("batch, sms, per_sm, grid", [
+    (1, 132, 2, 1), (2, 132, 2, 2), (133, 132, 2, 133), (264, 132, 2, 264),
+    (265, 132, 2, 264), (4096, 132, 3, 396)])
+def test_k6_persistent_grid(batch, sms, per_sm, grid):
+    """K6's grid: every resident block of the card, never more than one a
+    scenario (a block loops over b, b + grid, ...)."""
+    assert admm_iterations.persistent_grid(batch, sms, per_sm) == grid
+    # the blocks' scenario strides cover the batch once
+    covered = sorted(b for blk in range(grid)
+                     for b in range(blk, batch, grid))
+    assert covered == list(range(batch))
+
+
+
+def _round_f32(v):
+    """The float32 nearest the rational ``v`` (ties to even)."""
+    from fractions import Fraction
+    c = np.float32(float(v))
+    cands = (np.nextafter(c, np.float32(-np.inf)), c,
+             np.nextafter(c, np.float32(np.inf)))
+    return min(cands, key=lambda f: (abs(Fraction(float(f)) - v),
+                                     int(np.array(f).view(np.uint32)) & 1))
+
+
+def test_k6_quotient_sequence_rounds_like_division():
+    """K6 takes y / rho as q0 = y (1 / rho) corrected once,
+    q = fma(fma(-rho, q0, y), 1 / rho, q0) (csrc/admm_iterations.cu,
+    row_update): with each FMA rounded once, q is the correctly rounded
+    quotient the plain loop divides to, over the magnitudes the loop
+    meets, exact quotients and all-ones significands included."""
+    from fractions import Fraction
+    rng = np.random.default_rng(0)
+    n = 4000
+    rho = (10.0 ** rng.uniform(-6, 6, n)).astype(np.float32)
+    y = (rng.choice([-1.0, 1.0], n)
+         * 10.0 ** rng.uniform(-10, 10, n)).astype(np.float32)
+    ones = np.float32(2.0 - 2.0 ** -23)
+    rho[:200] = ones * np.float32(2.0) ** rng.integers(-20, 20, 200)
+    y[200:400] = ones * np.float32(2.0) ** rng.integers(-30, 30, 200)
+    y[400:600] = rho[400:600] * rng.integers(-1000, 1000, 200)
+    y[600] = 0.0
+    for yi, ri in zip(y, rho):
+        rinv = np.float32(1.0) / ri
+        q0 = yi * rinv
+        # fma(-rho, q0, y): rho q0 and its difference with y are exact in
+        # float64, so one rounding to float32
+        r = np.float32(np.float64(yi) - np.float64(ri) * np.float64(q0))
+        q = _round_f32(Fraction(float(q0))
+                       + Fraction(float(r)) * Fraction(float(rinv)))
+        assert q == yi / ri, (yi, ri)

@@ -66,6 +66,37 @@ def test_k4_plain_matches_the_xla_schedule_f64():
     np.testing.assert_allclose(got.numpy(), want, atol=1e-10, rtol=0)
 
 
+def _row_heavy(b=5, seed=3):
+    """Spread SPD matrices with row 0's off-diagonal entries tripled: the
+    largest absolute row sum of the balanced matrix is then far above the
+    largest column sum, so a body that took column sums (K2's shortcut on
+    its symmetrized S) would start from another c0."""
+    m = _spread_spd(b, seed=seed)
+    m[:, 0, 1:] *= 3.0
+    return m
+
+
+def test_k4_plain_takes_row_sums_like_the_pallas_kernel():
+    m = _row_heavy()
+    coeffs = COEFFS[:3]
+    want = np.asarray(pallas_admm.schulz_inverse_lanes(
+        jnp.asarray(m), coeffs, lane_tile=4, interpret=True))
+    got = schulz_lanes.schulz_inverse_lanes(torch.tensor(m), coeffs)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5 * scale, rtol=0)
+    # the schedule is a polynomial in M_b, so the column-sum variant is the
+    # row-sum one of M' transposed back: far from it here
+    cols = schulz_lanes.schulz_inverse_lanes(
+        torch.tensor(m).transpose(1, 2).contiguous(), coeffs).transpose(1, 2)
+    assert np.abs(cols.numpy() - want).max() > 1e-2 * scale
+
+
+@pytest.mark.parametrize("steps", [0, 65])
+def test_k4_entry_refuses_a_schedule_out_of_range(steps):
+    with pytest.raises(ValueError):
+        schulz_lanes.schulz_inverse_lanes(torch.eye(28)[None], (1.0,) * steps)
+
+
 def test_k4_schedule_is_the_jax_ekf_schedule():
     assert t_ekf.SINV_L0 == 1e-5
     assert len(COEFFS) == 12 and COEFFS[-2:] == (1.0, 1.0)

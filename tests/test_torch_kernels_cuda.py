@@ -505,6 +505,65 @@ def test_k6_loop_from_a_carried_iterate_matches_plain(card, iters):
                  <= 0.1 * (1.0 + want[2].abs().amax(-1))).all())
 
 
+@pytest.fixture(scope="module")
+def k6_ops():
+    """K6's operands (``_k6_inputs``) at batch 512, made once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return _k6_inputs(512, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("iters", [20, 80])
+@pytest.mark.parametrize("start", ["clip", "carried"])
+@pytest.mark.parametrize("batch", [1, 2, 133, 512])
+def test_k6_batches_match_plain(k6_ops, batch, start, iters):
+    """K6's persistent grid at one scenario, two, a partial wave and 512,
+    from clip(C x0) (the ``admm_iterations`` entry's start) and from a
+    carried z ten plain iterations in (``admm_loop``'s), against the plain
+    loop; each scenario bit-identical to the same scenario in the
+    batch-512 launch."""
+    o = k6_ops
+    z = torch.clamp(srb.constraint_matvec(o["x0"], o["mu"][:, None]),
+                    o["lb"], o["ub"])
+    x, y = o["x0"], o["y0"]
+    if start == "carried":
+        x, z, y = _plain_loop(o, x, z, y, 10)
+    launch = lambda n: admm_iterations._launch(
+        o["minv"][:n], o["qbar"][:n], o["lb"][:n], o["ub"][:n],
+        o["rho_vec"][:n], o["mu"][:n], x[:n],
+        None if start == "clip" else z[:n], y[:n], iters, 1.6, 1e-6)
+    admm_iterations.reset_launches()
+    got = launch(batch)
+    assert admm_iterations.launches == 1
+    ops = {k: v[:batch] for k, v in o.items()}
+    start_b = (x[:batch], z[:batch], y[:batch])
+    want = _plain_loop(ops, *start_b, iters)
+    want64 = _plain_loop({k: v.double() for k, v in ops.items()},
+                         *(t.double() for t in start_b), iters)
+    for g, w, w64 in zip(got[:2], want[:2], want64[:2]):
+        _assert_k6_close(g, w, w64)
+    assert bool(((got[2] - want[2]).abs().amax(-1)
+                 <= 0.1 * (1.0 + want[2].abs().amax(-1))).all())
+    for g, w in zip(got, launch(512)):
+        assert torch.equal(g, w[:batch])
+
+
+def test_k6_nan_stays_in_its_scenario(k6_ops):
+    """A scenario with NaN in qbar comes back non-finite in x and y; the
+    other scenarios of its launch are bit-identical to a clean launch."""
+    line, passed = chip_smoke.k6_nan_check(k6_ops, batch=133, poisoned=66)
+    assert passed, line
+
+
+def test_k6_refuses_an_unaligned_inverse(card):
+    ops = _k6_inputs(2, card)
+    buf = torch.empty(2 * 120 * 120 + 1, device=card)
+    minv = buf[1:].view(2, 120, 120)
+    minv.copy_(ops["minv"])
+    with pytest.raises(ValueError, match="aligned"):
+        admm_iterations.admm_iterations(**dict(ops, minv=minv))
+
+
 def test_new_wrappers_refuse_what_the_kernels_do_not_take(card):
     m = _balance_kkts(4, card)
     with pytest.raises(TypeError):
@@ -549,6 +608,53 @@ def test_k4_kernel_matches_plain(card, inputs):
         assert rel(got, want.double()) <= 5e-4
     else:
         assert rel(got, ref) <= max(5e-4, 2.0 * rel(want, ref))
+
+
+def _near_symmetric(batch, device, seed=11):
+    """Spread-diagonal SPD matrices made unsymmetric at round-off: each
+    entry moved by at most two units in its last place, independently of
+    its transpose."""
+    import numpy as np
+    m = chip_smoke.spread_spd(batch, 28, seed)
+    ulps = np.random.default_rng(seed + 1).integers(-2, 3, m.shape)
+    m = m * (1.0 + ulps * 2.0 ** -23).astype(np.float32)
+    return torch.tensor(m, device=device)
+
+
+@pytest.mark.parametrize("batch", [1, 33, 4096])
+def test_k4_batches_on_a_matrix_symmetric_up_to_round_off(card, batch):
+    """K4 at the estimator's batch, a partial wave and 4096, on matrices
+    symmetric only up to round-off: per matrix within 5e-4 x max|plain|
+    and max|S X - I| < 1e-3 (tests/test_pallas_admm.py:217-219)."""
+    from go1_qp_mpc_controller_torch.ops import schulz_lanes
+
+    m = _near_symmetric(batch, card)
+    assert not torch.equal(m, m.transpose(1, 2))
+    coeffs = admm._scaled_schulz_coeffs(ekf.SINV_L0)
+    schulz_lanes.reset_launches()
+    got = schulz_lanes.schulz_inverse_lanes(m, coeffs)
+    assert schulz_lanes.launches == 1
+    want = schulz_lanes.schulz_inverse_lanes_plain(m, coeffs)
+    assert torch.isfinite(got).all()
+    rel = ((got - want).abs().amax((1, 2)) / want.abs().amax((1, 2))).max()
+    assert float(rel) <= 5e-4
+    eye = torch.eye(28, dtype=torch.float64, device=card)
+    assert float((m.double() @ got.double() - eye).abs().max()) < 1e-3
+
+
+def test_k4_takes_row_sums(card):
+    """On a matrix whose balanced row sums are far above its column sums
+    (row 0's off-diagonal entries tripled), three steps of K4 agree with
+    the plain version, which takes row sums like the JAX body."""
+    from go1_qp_mpc_controller_torch.ops import schulz_lanes
+
+    m = chip_smoke.spread_spd(33, 28, 3)
+    m[:, 0, 1:] *= 3.0
+    m = torch.tensor(m, device=card)
+    coeffs = admm._scaled_schulz_coeffs(ekf.SINV_L0)[:3]
+    got = schulz_lanes.schulz_inverse_lanes(m, coeffs)
+    want = schulz_lanes.schulz_inverse_lanes_plain(m, coeffs)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_ekf_auto_route_launches_k4_and_k2_plain_does_not(card):
