@@ -23,7 +23,15 @@ just after it:
   against the simulated 1 kHz feed on the card, with the estimator thread
   (K4 once a sensor frame) and a scripted joystick session, on
   ``hardware_qp`` (the balance QP, K3 at n = 12) and ``gazebo_mpc`` (K1,
-  K3, K6).
+  K3, K6);
+- the scenario sweep (``parallel/sweep.py``): ``main.py sweep``'s program
+  at batch 4096 (the dense polished route: K3, K6), then the fused cold
+  route (K1, K6) through ``run_chunked`` over 32 chunks of 4096;
+- the long horizon: the stagewise solver (``ops/stagewise.py``, K3 at
+  n = 12 once a stage a Riccati pass) at batch 1024 for H = 40 and 120,
+  cold and warm; the JAX package's closed-loop protocol at H = 40; the
+  ``rollout(horizon=40)`` entry point; five receding-horizon ticks
+  (K3, K6).
 
 K4 (the EKF innovation inverse) is also held against its plain version at
 batch 4096 on its own, like K1, K2 and K3, and at batch 1 on the live
@@ -90,6 +98,45 @@ POLISHED_ONSET_TICKS = 130
 POLISHED_TIMED_TICKS = 60
 # the polished settings of main.py rollout and tests/test_walking.py
 POLISHED = dict(seg_iters=25, segments=3)
+# the scenario sweep: main.py sweep's batch and settings (the dense
+# polished route: K3, K6), and the fused cold route (bench.py
+# settings_cold: K1, K6) through run_chunked over 32 chunks, 131,072
+# scenarios (the JAX sweep's "100k+", parallel/sweep.py:239-241); rates
+# over SWEEP_SPANS spans
+SWEEP_BATCH = 4096
+SWEEP_CHUNKS = 32
+SWEEP_SPANS = 5
+SWEEP_DENSE = dict(seg_iters=25, segments=3)
+SWEEP_FUSED = dict(seg_iters=40, segments=1, polish=False, schulz_l0=1e-6,
+                   schulz_hi_tail=1, schulz_impl="pallas")
+SWEEP_F64_SCENARIOS = 64
+# JAX's physical bars at the JAX test's own size and settings
+# (tests/test_sharding.py:59-82)
+PHYSICAL_BATCH = 32
+PHYSICAL = dict(seg_iters=75, segments=5)
+# float32 against float64: on the QPs' flat valleys two float32 solves of
+# one scenario can sit N apart (the plain float32 sweep on the CPU: dense
+# route p90 1.06 N, max 7.9 N from float64 over 256 scenarios), so the
+# card's p50 and p90 are held within F64_FACTOR x the plain float32
+# version's + F64_SLACK N on the same scenarios
+F64_FACTOR = 2.0
+F64_SLACK = 0.05
+# the long horizon: bench.py:667-697's stagewise batch, settings and warm
+# ticks at H = 40 and 120; JAX's closed-loop protocol (tests/
+# test_stagewise.py:203-270, 400 ticks); the rollout(horizon=40) entry
+# point; five receding-horizon ticks
+LH_BATCH = 1024
+LH_HORIZONS = (40, 120)
+LH_WARM_TICKS = 10
+LH_SPANS = 3
+LH_COLD = dict(seg_iters=60, segments=3, polish=False)
+LH_WARM = dict(seg_iters=25, segments=1, polish=False)
+LH_F64_SCENARIOS = 32
+LH_ROLLOUT_TICKS = 400
+LH_WALK_AT = 50
+LH_ENTRY_TICKS = 200
+LH_PROFILE_TICKS = 20
+RECEDING_TICKS = 5
 # K6 per scenario: on x, within 1e-3 of its plain version (the tolerance
 # of tests/test_pallas_admm.py:75-83) and within 1e-3 + 1e-3 of the same
 # loop in float64 (the second 1e-3 for the float32 loop's own round-off on
@@ -160,6 +207,16 @@ def read_counts():
         counts[f"{name}_routes"] = {
             r: c for r, c in modules[name].route_launches.items() if c}
     return counts
+
+
+def add_counts(total, counts):
+    """Adds ``read_counts()``'s ``counts`` into ``total`` (the same keys)."""
+    for name, n in counts.items():
+        if isinstance(n, dict):
+            add_counts(total.setdefault(name, {}), n)
+        else:
+            total[name] = total.get(name, 0) + n
+    return total
 
 
 def card_line():
@@ -474,12 +531,9 @@ def k2_phase(batch, gen, device, reps):
     return record, lines, all_passed
 
 
-def profile_lines(run, ticks, wall_ms_per_tick):
-    """Device time by kernel over ``run()`` (``ticks`` more main-path
-    ticks) from torch.profiler: device time per tick against the
-    un-profiled wall time per tick ``wall_ms_per_tick`` (the profiler's own
-    host overhead inflates the profiled wall time), and the kernels that
-    take the most device time."""
+def device_trace(run):
+    """Run ``run()`` under torch.profiler: ([(start_us, end_us, kernel
+    name)] of the device events, wall us)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -489,33 +543,47 @@ def profile_lines(run, ticks, wall_ms_per_tick):
         run()
         torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        start, end = ev.time_range.start, ev.time_range.end
-        spans.append((start, end))
-        name = ev.name.replace("(anonymous namespace)::", "").split("(")[0]
-        tot, cnt = by_name.get(name, (0.0, 0))
-        by_name[name] = (tot + end - start, cnt + 1)
-    if not spans:
-        return ["profile: torch.profiler recorded no device events"]
+    events = [(ev.time_range.start, ev.time_range.end, ev.name)
+              for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return events, wall_us
+
+
+def busy_us(events):
+    """The union of the events' device intervals, in us."""
     busy, last = 0.0, -math.inf
-    for start, end in sorted(spans):        # union of kernel intervals
+    for start, end, _ in sorted(events):
         if end > last:
             busy += end - max(start, last)
             last = end
+    return busy
+
+
+def profile_lines(run, ticks, wall_ms_per_tick):
+    """Device time by kernel over ``run()`` (``ticks`` more main-path
+    ticks) from torch.profiler: device time per tick against the
+    un-profiled wall time per tick ``wall_ms_per_tick`` (the profiler's own
+    host overhead inflates the profiled wall time), and the kernels that
+    take the most device time."""
+    events, wall_us = device_trace(run)
+    if not events:
+        return ["profile: torch.profiler recorded no device events"]
+    by_name = {}
+    for start, end, name in events:
+        name = name.replace("(anonymous namespace)::", "").split("(")[0]
+        tot, cnt = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + end - start, cnt + 1)
     total = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    per_tick = busy / 1e3 / ticks
+    per_tick = busy_us(events) / 1e3 / ticks
     lines = [f"profile: {ticks} ticks, device busy {per_tick:.3f} ms a tick "
              f"({100 * per_tick / wall_ms_per_tick:.1f}% of the "
              f"{wall_ms_per_tick:.3f} ms un-profiled wall time a tick; "
              f"profiled wall {wall_us / 1e3 / ticks:.3f} ms a tick), "
-             f"{len(spans) / ticks:.0f} kernel launches a tick"]
-    lines += [f"profile: {t / 1e3 / ticks:.3f} ms a tick ({100 * t / total:.1f}%"
-              f") in {c / ticks:g} launches a tick: {name[:80]}"
-              for name, (t, c) in top]
+             f"{len(events) / ticks:.0f} kernel launches a tick"]
+    lines += [f"profile: {t / 1e3 / ticks:.3f} ms a tick "
+              f"({100 * t / total:.1f}%) in {c / ticks:g} launches a tick: "
+              f"{name[:80]}" for name, (t, c) in top]
     return lines
 
 
@@ -703,6 +771,28 @@ def basin_accepted(m, x0):
     return int(ok.sum())
 
 
+def riccati_g(batch, seed, device, h=LH_HORIZONS[0]):
+    """K3's operands on the stagewise path: the 12 x 12 matrices
+    G = Rbar + B' S B that the first Riccati pass of ``stagewise_chain``'s
+    cold solve on ``batch`` sweep scenarios hands to K3, recorded as it
+    hands them. Returns them by stage, (h, batch, 12, 12)."""
+    import torch
+    from go1_qp_mpc_controller_torch.ops import admm
+
+    recorded, inverse = [], admm._schulz_inverse
+
+    def record(g, *args, **kw):
+        recorded.append(g.clone())
+        return inverse(g, *args, **kw)
+
+    admm._schulz_inverse = record
+    try:
+        stagewise_chain(random_scenarios(batch, seed, device), h, 0)
+    finally:
+        admm._schulz_inverse = inverse
+    return torch.stack(recorded[:h][::-1])
+
+
 def k3_phase(batch, gen, device, reps):
     """K3 against its plain version: n = 120 KKTs (``kkt_build_plain`` of
     ``random_kkt_operands``) with the dense solve's 20 plain steps cold,
@@ -711,7 +801,11 @@ def k3_phase(batch, gen, device, reps):
     ``batch`` and on the first 16 and 1 of them (each line names the route
     the wrapper took: one block a matrix above ``CROSSOVER``, a cluster of
     8 up to it); n = 12 balance-QP KKTs cold and warm with 20 plain
-    steps. Gated per scenario in balanced coordinates against the float32
+    steps; n = 12 stagewise Riccati matrices (``riccati_g``, the first and
+    the last stage, at batch ``LH_BATCH`` and on the first 1 of them: the
+    long-horizon paths hand K3 both batches) cold with the Riccati pass's
+    scaled l0 = 1e-7 schedule.
+    Gated per scenario in balanced coordinates against the float32
     plain version (3e-4) and, at n = 120, against the plain version with
     the kernel's 3xTF32 middle products (``K3_EMU_TOL``). Kernel, plain
     version and library call are timed in turn (``cuda_times``). Returns
@@ -724,6 +818,9 @@ def k3_phase(batch, gen, device, reps):
     m120 = kkt_schulz.kkt_build_plain(*random_kkt_operands(batch, gen,
                                                            device))
     m12 = random_balance_kkts(batch, gen, device)
+    g_stages = riccati_g(LH_BATCH, int(torch.randint(1 << 30, (1,),
+                                                     generator=gen)), device)
+    g12, g12_last = g_stages[0], g_stages[-1].contiguous()
     bad = (torch.arange(batch, device=device) % 8 == 0)[:, None, None]
 
     def warm_start(m):
@@ -743,6 +840,14 @@ def k3_phase(batch, gen, device, reps):
         "n=120 cold 20 steps, batch 1": (head(m120, 1), None, plain20),
         "n=12 cold 20 steps": (m12, None, plain20),
         "n=12 warm 20 steps": (m12, x12, plain20),
+        f"n=12 Riccati G cold l0=1e-7, batch {LH_BATCH}": (
+            g12, None, coeffs(1e-7)),
+        "n=12 Riccati G cold l0=1e-7, batch 1": (
+            head(g12, 1), None, coeffs(1e-7)),
+        f"n=12 Riccati G stage {len(g_stages) - 1} cold l0=1e-7, batch "
+        f"{LH_BATCH}": (g12_last, None, coeffs(1e-7)),
+        f"n=12 Riccati G stage {len(g_stages) - 1} cold l0=1e-7, batch 1": (
+            head(g12_last, 1), None, coeffs(1e-7)),
     }
     tol = 3e-4
     lines, records = [], {}
@@ -795,6 +900,7 @@ def k3_phase(batch, gen, device, reps):
                              library_ms=t["library"], passed=passed)
     main = records["n=120 cold 20 steps"]
     one = records["n=120 cold 20 steps, batch 1"]
+    riccati = records[f"n=12 Riccati G cold l0=1e-7, batch {LH_BATCH}"]
     record = {
         "name": "schulz_batch", "route": "cuda",
         "source": "go1_qp_mpc_controller_torch/csrc/schulz_batch.cu",
@@ -804,7 +910,11 @@ def k3_phase(batch, gen, device, reps):
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "bound_fp32_ms": main["bound_fp32_ms"],
-        "batch1_ms": one["kernel_ms"], "batch1_library_ms": one["library_ms"]}
+        "batch1_ms": one["kernel_ms"], "batch1_library_ms": one["library_ms"],
+        "riccati_n12_ms": riccati["kernel_ms"],
+        "riccati_n12_bound_ms": riccati["bound_ms"],
+        "riccati_n12_plain_ms": riccati["plain_ms"],
+        "riccati_n12_library_ms": riccati["library_ms"]}
     return record, lines, all(r["passed"] for r in records.values())
 
 
@@ -853,63 +963,25 @@ def k3_route_phase(gen, device, reps):
 
 
 def random_scenarios(batch, seed, device):
-    """Seeded random stand / trot MPC scenarios: the JAX package's
-    ``parallel/sweep.random_scenarios`` distribution (mass, height,
-    velocity command, friction and contact pattern randomized), made with
-    numpy. Returns a dict of tensors on ``device``."""
-    import numpy as np
+    """Seeded random stand / trot MPC scenarios: the port's
+    ``parallel/sweep.random_scenarios`` (the JAX package's draws, bit for
+    bit), float32 on ``device``."""
     import torch
-
-    rng = np.random.default_rng(seed)
-    h = 10
-    mass = rng.uniform(10.0, 18.0, batch)
-    heights = rng.uniform(0.22, 0.32, batch)
-    vel_cmd = rng.uniform([-0.5, -0.3, 0.0], [0.5, 0.3, 0.0], (batch, 3))
-    mu = rng.uniform(0.25, 0.7, batch)
-    contacts = rng.uniform(size=(batch, 4)) > 0.4
-    contacts[contacts.sum(1) < 2] = True
-    feet = np.tile(np.array([[0.17, 0.15, 0.0], [0.17, -0.15, 0.0],
-                             [-0.17, 0.15, 0.0], [-0.17, -0.15, 0.0]]),
-                   (batch, 1, 1))
-    feet[..., 2] = -heights[:, None]
-    x0 = np.zeros((batch, 13))
-    x0[:, 5] = heights
-    x0[:, 9:12] = vel_cmd * rng.uniform(0.5, 1.0, (batch, 1))
-    x0[:, 12] = -9.8
-    x_ref = np.zeros((batch, h, 13))
-    x_ref[..., 5] = heights[:, None]
-    x_ref[..., 9:11] = vel_cmd[:, None, :2]
-    steps = 0.0025 * np.arange(1, h + 1)
-    x_ref[..., 3] = vel_cmd[:, None, 0] * steps
-    x_ref[..., 4] = vel_cmd[:, None, 1] * steps
-    x_ref[..., 12] = -9.8
-    inertia = (np.tile(np.diag([0.0168, 0.0656, 0.0743]), (batch, 1, 1))
-               * (mass / 15.0)[:, None, None])
-    t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
-    return {"x0": t(x0), "x_ref": t(x_ref), "foot_pos": t(feet),
-            "contacts": torch.tensor(contacts, device=device),
-            "mass": t(mass), "inertia": t(inertia), "mu": t(mu),
-            "q_weights": t([80.0, 80.0, 1.0, 0.0, 0.0, 270.0, 1.0, 1.0,
-                            20.0, 20.0, 20.0, 20.0, 0.0]),
-            "r_weights": t([1e-5, 1e-5, 1e-6] * 4)}
+    from go1_qp_mpc_controller_torch.parallel import sweep
+    return sweep.random_scenarios(seed, batch, torch.float32, device)
 
 
 def condense(scn, x0, dense):
     """The scenarios' condensed QPs at start state ``x0`` (B, 13): lazy, or
-    dense (``srb.CondensedQP``) with ``dense``. The per-scenario mass rides
-    as a (B, 1, 1) tensor through ``calculate_B_c``."""
-    import torch
+    dense (``srb.CondensedQP``) with ``dense``, discretized at the sweep's
+    0.0025 s as ``sweep.discretize`` does."""
     from go1_qp_mpc_controller_torch.models import srb
+    from go1_qp_mpc_controller_torch.parallel import sweep
 
-    batch = x0.shape[0]
-    rot = torch.eye(3, dtype=x0.dtype, device=x0.device).expand(batch, 3, 3)
-    a_d, b_d = srb.discretize(
-        srb.calculate_A_c(x0[:, 0:3]),
-        srb.calculate_B_c(scn["mass"][:, None, None], scn["inertia"], rot,
-                          scn["foot_pos"]), 0.0025)
+    a_d, b_d = sweep.discretize(scn, 0.0025, x0)
     fn = srb.condense_nilpotent_const if dense else srb.condense_nilpotent_lazy
-    return fn(a_d, b_d, x0, scn["x_ref"], scn["q_weights"],
-              scn["r_weights"], scn["contacts"])
+    return fn(a_d, b_d, x0, scn.x_ref, scn.q_weights, scn.r_weights,
+              scn.contacts)
 
 
 def tight_reference(scn, x0, n):
@@ -921,15 +993,14 @@ def tight_reference(scn, x0, n):
     with the same scenarios."""
     import torch
     from go1_qp_mpc_controller_torch.ops import admm
+    from go1_qp_mpc_controller_torch.parallel import sweep
 
-    batch = x0.shape[0]
-    f64 = lambda v: v.cpu().double() if v.is_floating_point() else v.cpu()
-    sub = {k: f64(v[:n] if v.shape[0] == batch else v)
-           for k, v in scn.items()}
+    f64 = torch.float64
+    sub = on_cpu(sweep.take(scn, slice(0, n)), f64)
     settings = admm.ADMMSettings(seg_iters=80, segments=4, polish=True,
                                  polish_solver="inv")
-    sol = admm.mpc_solve(condense(sub, f64(x0[:n]), dense=True), settings,
-                         mu=sub["mu"])
+    sol = admm.mpc_solve(condense(sub, x0[:n].cpu().to(f64), dense=True),
+                         settings, mu=sub.mu)
     return sol.x[:, :12]
 
 
@@ -956,7 +1027,7 @@ def dense_chain_phase(batch, seed, device, reps):
     from go1_qp_mpc_controller_torch.ops import admm, admm_iterations
 
     scn = random_scenarios(batch, seed, device)
-    mu = scn["mu"]
+    mu = scn.mu
     settings_cold = admm.ADMMSettings(seg_iters=40, segments=1, polish=False,
                                       schulz_l0=1e-6, schulz_hi_tail=1,
                                       schulz_impl="pallas")
@@ -967,11 +1038,11 @@ def dense_chain_phase(batch, seed, device, reps):
     drift[:, 3] = 0.0005
 
     reset_counts()
-    lazy = condense(scn, scn["x0"], dense=False)
+    lazy = condense(scn, scn.x0, dense=False)
     sol0, warm = admm.mpc_solve_cold(lazy, settings_cold, mu=mu,
-                                     contacts=scn["contacts"],
-                                     foot_pos=scn["foot_pos"])
-    x0 = scn["x0"]
+                                     contacts=scn.contacts,
+                                     foot_pos=scn.foot_pos)
+    x0 = scn.x0
     kept = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1345,6 +1416,463 @@ def polished_batched_phase(batch, seed, device, card):
         f"{json.dumps(counts)}; healthy share {share:.4f}",
         f"polished batched checks {json.dumps(checks)} "
         f"{'PASS' if all(checks.values()) else 'FAIL'}"]
+    return counts, lines, all(checks.values())
+
+
+def grf_gap(got, want):
+    """Per-scenario max |got - want| (N) over each scenario's forces:
+    {"p50", "p90", "max"}."""
+    import torch
+    err = (got.cpu().double() - want.cpu().double()).abs().flatten(1).amax(1)
+    return {"p50": float(err.median()),
+            "p90": float(torch.quantile(err, 0.9)), "max": float(err.max())}
+
+
+def f64_gate(card, plain):
+    """The card's float32 result against the float64 one is within
+    ``F64_FACTOR`` x the plain float32 version's distance + ``F64_SLACK``
+    N, at p50 and p90 (the max is printed: a lone flat-valley scenario
+    moves it by N in either float32 run)."""
+    return all(card[q] <= F64_FACTOR * plain[q] + F64_SLACK
+               for q in ("p50", "p90"))
+
+
+def gap_text(card, plain):
+    return (f"p50 {card['p50']:.4f} / p90 {card['p90']:.4f} / max "
+            f"{card['max']:.4f} N (plain float32 on the CPU {plain['p50']:.4f}"
+            f" / {plain['p90']:.4f} / {plain['max']:.4f})")
+
+
+def on_cpu(tree, dtype):
+    """A copy of ``tree`` (a NamedTuple of tensors) on the CPU, its
+    floating leaves in ``dtype``."""
+    return type(tree)(*[v.cpu().to(dtype) if v.is_floating_point()
+                        else v.cpu() for v in tree])
+
+
+def wall_spans(fn, spans):
+    """Wall seconds of ``spans`` synchronized calls of ``fn``."""
+    import torch
+    walls = []
+    for _ in range(spans):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def rate_text(n, walls):
+    """``n`` solves a span: the median rate over the spans, with the
+    slowest and fastest span's."""
+    import statistics
+    return (f"{n / statistics.median(walls):.1f} solves/s (spans "
+            f"{n / max(walls):.1f}-{n / min(walls):.1f}, {len(walls)} "
+            f"spans)")
+
+
+def physical_bars(scn, grf):
+    """tests/test_sharding.py:59-82's checks on a sweep's GRFs: swing legs
+    carry no force (0.1 N), fz > -0.05, the friction cones hold (0.1 N)
+    and the stance legs carry a fifth of the weight."""
+    grf = grf.cpu().double()
+    contacts = scn.contacts.cpu()
+    mu = scn.mu.cpu().double()[:, None]
+    fz = grf[..., 2]
+    return {"swing<0.1": float(grf[~contacts].abs().max()) < 0.1,
+            "fz>-0.05": bool((fz > -0.05).all()),
+            "cone_x": bool((grf[..., 0].abs() <= mu * fz + 0.1).all()),
+            "cone_y": bool((grf[..., 1].abs() <= mu * fz + 0.1).all()),
+            "support>0.2mg": bool((fz.sum(-1) > 0.2 * scn.mass.cpu().double()
+                                   * 9.8).all())}
+
+
+def sweep_phase(seed, device, card, batch=SWEEP_BATCH, chunks=SWEEP_CHUNKS):
+    """The scenario sweep (``parallel/sweep.py``): ``main.py sweep``'s
+    program (``make_sweep_fn`` with main.py's settings and the preset's
+    time step, the dense polished route: K3, K6) at ``batch``, then the
+    fused cold route (``SWEEP_FUSED``: K1, K6) through ``run_chunked`` over
+    ``chunks`` chunks of ``batch``, each counted in its first run and then
+    timed over ``SWEEP_SPANS`` spans. Gates: finite outputs, one solve a
+    scenario, the launches, the first ``SWEEP_F64_SCENARIOS`` scenarios'
+    GRFs against the same solve in float64 on the CPU (``f64_gate``) and
+    JAX's physical bars at its own size and settings. Returns (counts by
+    path, lines, passed)."""
+    import torch
+    from go1_qp_mpc_controller_torch.config import presets
+    from go1_qp_mpc_controller_torch.ops import admm
+    from go1_qp_mpc_controller_torch.parallel import sweep
+
+    f32, f64 = torch.float32, torch.float64
+    _, params, _ = presets.load_preset("gazebo_mpc", f32, device=device)
+    dt = float(params.mpc_dt)
+    routes = {"dense": admm.ADMMSettings(**SWEEP_DENSE),
+              "fused": admm.ADMMSettings(**SWEEP_FUSED)}
+    fns = {k: sweep.make_sweep_fn(device, dt, s) for k, s in routes.items()}
+    scns = {"dense": sweep.random_scenarios(seed, batch, f32, device),
+            "fused": sweep.random_scenarios(seed + 1, batch * chunks, f32,
+                                            device)}
+    runs = {"dense": lambda: fns["dense"](scns["dense"]),
+            "fused": lambda: sweep.run_chunked(fns["fused"], scns["fused"],
+                                               batch)}
+    counts, outs, walls = {}, {}, {}
+    for name, run in runs.items():
+        reset_counts()
+        outs[name] = run()
+        counts[f"sweep_{name}"] = read_counts()
+    for name, run in runs.items():
+        walls[name] = wall_spans(run, SWEEP_SPANS)
+
+    n = SWEEP_F64_SCENARIOS
+    gaps = {}
+    for name, settings in routes.items():
+        head = sweep.take(scns[name], slice(0, n))
+        ref = {dtype: sweep.make_sweep_fn("cpu", dt, settings)(
+            on_cpu(head, dtype)).grf for dtype in (f64, f32)}
+        gaps[name] = (grf_gap(outs[name].grf[:n], ref[f64]),
+                      grf_gap(ref[f32], ref[f64]))
+    phys_scn = sweep.random_scenarios(0, PHYSICAL_BATCH, f32, device)
+    phys = sweep.make_sweep_fn(device, 0.0025, admm.ADMMSettings(**PHYSICAL))(
+        phys_scn)
+    bars = physical_bars(phys_scn, phys.grf)
+    dense_c, fused_c = counts["sweep_dense"], counts["sweep_fused"]
+    segments = routes["dense"].segments
+    checks = {
+        "finite": all(bool(torch.isfinite(o.forces_all).all())
+                      for o in outs.values()),
+        "one_solve_a_scenario": (outs["dense"].stats["num_solves"] == batch
+                                 and outs["fused"].stats["num_solves"]
+                                 == batch * chunks),
+        "dense_k3_k6_a_segment": (dense_c["schulz_batch"] == segments
+                                  and dense_c["admm_iterations"] == segments
+                                  and dense_c["kkt_schulz"] == 0),
+        "fused_k1_k6_a_chunk": (fused_c["kkt_schulz"] == chunks
+                                and fused_c["admm_iterations"] == chunks
+                                and fused_c["schulz_batch"] == 0),
+        "dense_vs_float64": f64_gate(*gaps["dense"]),
+        "fused_vs_float64": f64_gate(*gaps["fused"]),
+        "physical_bars": all(bars.values())}
+    lines = [
+        f"sweep: main.py sweep's program (make_sweep_fn, {SWEEP_DENSE}, "
+        f"mpc_dt {dt}) at batch {batch}: "
+        f"{rate_text(batch, walls['dense'])}; max primal / dual residual "
+        f"{float(outs['dense'].stats['max_primal_res']):.4g} / "
+        f"{float(outs['dense'].stats['max_dual_res']):.4g}; launches "
+        f"{json.dumps(dense_c)}; on {card}",
+        f"sweep: the fused cold route ({SWEEP_FUSED}) through run_chunked, "
+        f"{chunks} chunks of {batch} ({batch * chunks} scenarios): "
+        f"{rate_text(batch * chunks, walls['fused'])}; max primal / dual "
+        f"residual {outs['fused'].stats['max_primal_res']:.4g} / "
+        f"{outs['fused'].stats['max_dual_res']:.4g}; launches "
+        f"{json.dumps(fused_c)}",
+        f"sweep against the same solve in float64 on the CPU, first {n} "
+        f"scenarios, per-scenario max |GRF error|: dense "
+        f"{gap_text(*gaps['dense'])}; fused {gap_text(*gaps['fused'])}; "
+        f"gate p50 and p90 <= {F64_FACTOR:g} x plain + {F64_SLACK:g} N",
+        f"sweep physical bars (tests/test_sharding.py:59-82: seed 0, batch "
+        f"{PHYSICAL_BATCH}, {PHYSICAL}, mpc_dt 0.0025) {json.dumps(bars)}",
+        f"sweep checks {json.dumps(checks)} "
+        f"{'PASS' if all(checks.values()) else 'FAIL'}"]
+    return counts, lines, all(checks.values())
+
+
+def stagewise_chain(scn, h, ticks):
+    """bench.py:198-240's stagewise program on ``scn``: the reference held
+    at its last row over ``h`` stages, a cold ``stagewise.mpc_solve``
+    (``LH_COLD``), then ``ticks`` warm ticks (``LH_WARM``) with the start
+    state drifting as in bench.py:503-504. Returns (cold solution, last
+    warm solution or None)."""
+    import torch
+    from go1_qp_mpc_controller_torch.ops import admm, stagewise
+    from go1_qp_mpc_controller_torch.parallel import sweep
+
+    a_d, b_d = sweep.discretize(scn, 0.0025)
+    x_ref = scn.x_ref[:, -1:].expand(-1, h, -1).contiguous()
+    common = (scn.q_weights, scn.r_weights, scn.contacts)
+    sol, warm = stagewise.mpc_solve(
+        a_d, b_d, scn.x0, x_ref, *common, mu=scn.mu,
+        settings=admm.ADMMSettings(**LH_COLD), return_warm=True)
+    drift = torch.zeros_like(scn.x0)
+    drift[:, 9], drift[:, 3] = 0.001, 0.0005
+    x0, sol_w = scn.x0, None
+    for _ in range(ticks):
+        x0 = x0 + drift
+        sol_w, warm = stagewise.mpc_solve_warm(
+            a_d, b_d, x0, x_ref, *common, warm, mu=scn.mu,
+            settings=admm.ADMMSettings(**LH_WARM))
+    return sol, sol_w
+
+
+def kernel_count(run):
+    """(CUDA kernels launched, device-busy ms, wall ms) of ``run()`` from
+    a torch.profiler trace."""
+    events, wall_us = device_trace(run)
+    return len(events), busy_us(events) / 1e3, wall_us / 1e3
+
+
+def stagewise_batch_lines(seed, device, h, batch):
+    """One horizon of the stagewise batch: the chain counted, then timed
+    (cold and warm spans) replayed and eager, launches a solve from the
+    profiler, and the first ``LH_F64_SCENARIOS`` scenarios' first-stage
+    forces against float64 on the CPU. Returns (counts, lines, checks)."""
+    import statistics
+
+    import torch
+    from go1_qp_mpc_controller_torch.ops import stagewise
+    from go1_qp_mpc_controller_torch.parallel import sweep
+
+    scn = sweep.random_scenarios(seed, batch, torch.float32, device)
+    reset_counts()
+    cold, warm = stagewise_chain(scn, h, LH_WARM_TICKS)
+    counts = read_counts()
+    times, launches = {}, {}
+    for replay in (True, False):
+        stagewise.REPLAY = replay
+        try:
+            key = "replayed" if replay else "eager"
+            spans = LH_SPANS if replay else 1
+            times[key] = (
+                wall_spans(lambda: stagewise_chain(scn, h, 0), spans),
+                wall_spans(lambda: stagewise_chain(scn, h, LH_WARM_TICKS),
+                           spans))
+            launches[key] = kernel_count(lambda: stagewise_chain(scn, h, 0))
+        finally:
+            stagewise.REPLAY = True
+    n = LH_F64_SCENARIOS
+    head = sweep.take(scn, slice(0, n))
+    ref = {dtype: stagewise_chain(on_cpu(head, dtype), h, LH_WARM_TICKS)
+           for dtype in (torch.float64, torch.float32)}
+    gaps = {}
+    for i, name in enumerate(("cold", "warm")):
+        u0 = lambda sols: sols[i].u[:, 0]
+        gaps[name] = (grf_gap(u0((cold, warm))[:n], u0(ref[torch.float64])),
+                      grf_gap(u0(ref[torch.float32]),
+                              u0(ref[torch.float64])))
+    checks = {
+        f"h{h}_finite": bool(torch.isfinite(cold.u).all()
+                             and torch.isfinite(warm.u).all()),
+        # K3 at n = 12 once a stage a Riccati pass: 3 segments cold, one a
+        # warm tick
+        f"h{h}_k3_n12_a_stage": (
+            counts["schulz_batch"] == h * (3 + LH_WARM_TICKS)
+            and counts["schulz_batch_routes"] == {
+                "n12": h * (3 + LH_WARM_TICKS)}),
+        f"h{h}_cold_vs_float64": f64_gate(*gaps["cold"]),
+        f"h{h}_warm_vs_float64": f64_gate(*gaps["warm"])}
+    cold_w, warm_w = times["replayed"]
+    ecold_w, ewarm_w = times["eager"]
+    warm_only = [w - statistics.median(cold_w) for w in warm_w]
+    lines = [
+        f"stagewise H = {h}, batch {batch} (bench.py:667-697 settings): cold "
+        f"{rate_text(batch, cold_w)}; {LH_WARM_TICKS} warm ticks "
+        f"{rate_text(batch * LH_WARM_TICKS, warm_only)} (a chain span less "
+        f"the median cold span); eager: cold {batch / ecold_w[0]:.1f} "
+        f"solves/s, warm "
+        f"{batch * LH_WARM_TICKS / (ewarm_w[0] - ecold_w[0]):.1f} solves/s;"
+        f" launches {json.dumps(counts)}",
+        f"stagewise H = {h} kernels a cold solve (profiler): replayed "
+        f"{launches['replayed'][0]} launches, device busy "
+        f"{launches['replayed'][1]:.3f} ms of "
+        f"{launches['replayed'][2]:.3f} ms; eager "
+        f"{launches['eager'][0]} launches, device busy "
+        f"{launches['eager'][1]:.3f} ms of {launches['eager'][2]:.3f} ms",
+        f"stagewise H = {h} first-stage forces against float64 on the CPU, "
+        f"first {n} scenarios: cold {gap_text(*gaps['cold'])}; after "
+        f"{LH_WARM_TICKS} warm ticks {gap_text(*gaps['warm'])}"]
+    return counts, lines, checks
+
+
+def stagewise_protocol(device, card):
+    """tests/test_stagewise.py:203-270 on the card: one robot at H = 40,
+    standing then walking at 0.3 m/s from tick ``LH_WALK_AT``, plant
+    ground truth in place of the EKF; each tick the production program
+    (``control_step(horizon=40)``: warm carry, routed) and a cold solve
+    every tick from the same state, the plant stepped with the
+    production torques. The launch counts are the production ticks' alone
+    (set to 0 before each and read after it, the comparator left out).
+    Returns (counts, lines, checks)."""
+    import numpy as np
+    import torch
+    from go1_qp_mpc_controller_torch.ctrl import controller
+    from go1_qp_mpc_controller_torch.envs import rollout, srb_sim
+    from go1_qp_mpc_controller_torch.models import types
+    from go1_qp_mpc_controller_torch.ops import admm
+
+    f32, h, dt = torch.float32, 40, 0.002
+    model = types.default_robot_model(f32, device)
+    params = types.default_ctrl_params(f32, device)
+    carry = rollout.init_carry(model, params, 1, dtype=f32, device=device,
+                               horizon=h)
+    kw = dict(settings=admm.ADMMSettings(**LH_COLD),
+              warm_settings=admm.ADMMSettings(**LH_WARM),
+              use_terrain_adapt=False, horizon=h)
+    walk = _walk_command(LH_WALK_AT, 0.3)
+    sim, fz, ctrl = carry.sim, carry.stance_forces_z, carry.ctrl
+    stats, diffs, walls, counts = {}, [], [], {}
+    for tick in range(LH_ROLLOUT_TICKS):
+        ctrl = walk(tick)(tick, ctrl)
+        sensors = srb_sim.read_sensors(sim, model, ctrl.contacts, fz, dt)
+        ctrl = controller.sensor_update(ctrl, model, sensors, dt,
+                                        estimate=False)
+        ctrl = ctrl._replace(root_pos=sim.root_pos,
+                             root_lin_vel=sim.root_lin_vel)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        warm = controller.control_step(ctrl, model, params, dt, stats=stats,
+                                       **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        add_counts(counts, read_counts())
+        cold = controller.control_step(ctrl, model, params, dt,
+                                       warm_mode="cold", **kw)
+        sim, fz = srb_sim.step(sim, model, warm.joint_torques, warm.contacts,
+                               warm.foot_pos_target_last_time, dt)
+        diffs.append((warm.foot_forces_grf
+                      - cold.foot_forces_grf).abs().amax())
+        ctrl = warm
+    diffs = torch.stack(diffs).cpu().double().numpy()
+    z = float(sim.root_pos[0, 2])
+    tilt = float(ctrl.root_euler.abs().max())
+    vx = float(sim.root_lin_vel[0, 0])
+    p50, p95 = float(np.median(diffs)), float(np.percentile(diffs, 95))
+    checks = {"protocol_finite": bool(np.isfinite(diffs).all()),
+              "protocol_p50<3": p50 < 3.0, "protocol_p95<20": p95 < 20.0,
+              "protocol_max<40": float(diffs.max()) < 40.0,
+              "protocol_height": 0.25 < z < 0.35,
+              "protocol_tilt<0.3": tilt < 0.3, "protocol_vx>0.1": vx > 0.1,
+              "protocol_k3_n12": counts["schulz_batch_routes"] == {
+                  "n12": counts["schulz_batch"]}}
+    lines = [
+        f"stagewise closed loop (tests/test_stagewise.py:203-270 on the "
+        f"card, float32): {LH_ROLLOUT_TICKS} ticks at H = {h}, routes "
+        f"{json.dumps(stats)}; production tick wall time p50 "
+        f"{_pct(walls, 50):.3f} ms, p99 {_pct(walls, 99):.3f} ms "
+        f"(synchronized, the cold comparator not timed) on {card}; warm-vs-"
+        f"cold GRF p50 {p50:.4f} / p95 {p95:.4f} / max {diffs.max():.4f} N "
+        f"(bars 3 / 20 / 40); final z {z:.4f} m, max |euler| {tilt:.4f} "
+        f"rad, vx {vx:.4f} m/s; launches of the production ticks "
+        f"{json.dumps(counts)}"]
+    return counts, lines, checks
+
+
+def rollout_horizon_lines(device, card):
+    """``rollout(horizon=40)`` through the entry point, ``main.py rollout
+    --horizon 40``'s settings, the EKF on: one robot standing then
+    trotting, a synchronized one-tick call a tick; then
+    ``LH_PROFILE_TICKS`` more under the profiler. Returns (counts, lines,
+    checks)."""
+    import torch
+    from go1_qp_mpc_controller_torch.envs import rollout
+    from go1_qp_mpc_controller_torch.models import types
+    from go1_qp_mpc_controller_torch.ops import admm
+
+    f32, h = torch.float32, 40
+    model = types.default_robot_model(f32, device)
+    params = types.default_ctrl_params(f32, device)
+    carry = rollout.init_carry(model, params, 1, dtype=f32, device=device,
+                               horizon=h)
+    kw = dict(settings=admm.ADMMSettings(**LH_COLD),
+              warm_settings=admm.ADMMSettings(**LH_WARM), horizon=h)
+    walk = _walk_command(LH_WALK_AT, 0.3)
+    stats = {}
+    reset_counts()
+    carry, tr, walls = _robot_ticks(carry, model, params, LH_ENTRY_TICKS,
+                                    walk, stats=stats, **kw)
+    counts = read_counts()
+    profile = profile_lines(lambda: _robot_ticks(
+        carry, model, params, LH_PROFILE_TICKS,
+        lambda t: walk(LH_ENTRY_TICKS + t), **kw), LH_PROFILE_TICKS,
+        _pct(walls, 50))
+    z = tr.root_pos[:, 0, 2]
+    checks = {"entry_finite": bool(torch.isfinite(tr.foot_forces_grf).all()),
+              "entry_height": bool(((z > 0.25) & (z < 0.35)).all())}
+    lines = [
+        f"rollout(horizon={h}) entry point, EKF on, {LH_ENTRY_TICKS} ticks "
+        f"(trot 0.3 m/s from tick {LH_WALK_AT}), routes {json.dumps(stats)}:"
+        f" tick wall time p50 {_pct(walls, 50):.3f} ms, p99 "
+        f"{_pct(walls, 99):.3f} ms (synchronized each tick) on {card}; "
+        f"launches {json.dumps(counts)}"]
+    lines += [f"rollout(horizon={h}) {line}" for line in profile]
+    return counts, lines, checks
+
+
+def receding_lines(device):
+    """``RECEDING_TICKS`` ticks of ``control_step(receding_horizon=True)``
+    from tests/test_srb_condensation.py:280-302's walking diagonal stance
+    (the default polished settings: K3, K6), the same ticks in float64 on
+    the CPU. Returns (counts, lines, checks)."""
+    import torch
+    from go1_qp_mpc_controller_torch.ctrl import controller
+    from go1_qp_mpc_controller_torch.models import types
+
+    def ticks(dtype, dev, count):
+        model = types.default_robot_model(dtype, dev)
+        params = types.default_ctrl_params(dtype, dev)
+        s = types.init_ctrl_state(model, 1, dtype, dev)
+        s = s._replace(
+            movement_mode=torch.ones_like(s.movement_mode),
+            root_lin_vel_d=torch.tensor([[0.4, 0.0, 0.0]], dtype=dtype,
+                                        device=dev),
+            contacts=torch.tensor([[True, False, False, True]], device=dev))
+        grfs = []
+        if count:
+            reset_counts()
+        for _ in range(RECEDING_TICKS):
+            s = controller.control_step(s, model, params, 0.002,
+                                        receding_horizon=True)
+            grfs.append(s.foot_forces_grf)
+        return torch.cat(grfs), (read_counts() if count else None)
+
+    got, counts = ticks(torch.float32, device, True)
+    want, _ = ticks(torch.float64, torch.device("cpu"), False)
+    gap = grf_gap(got, want)
+    grf = got.cpu().double()
+    segments = 4                 # ADMMSettings(): 4 segments, polished
+    checks = {"receding_finite": bool(torch.isfinite(grf).all()),
+              "receding_stance_fz>10": bool((grf[:, [0, 3], 2] > 10).all()),
+              "receding_swing<1e-3": float(grf[:, 1:3].abs().max()) < 1e-3,
+              "receding_vs_float64<0.05": gap["max"] < 0.05,
+              "receding_k3_k6_a_segment": (
+                  counts["schulz_batch"] == segments * RECEDING_TICKS
+                  and counts["admm_iterations"] == segments * RECEDING_TICKS)}
+    lines = [
+        f"receding horizon: {RECEDING_TICKS} ticks of control_step("
+        f"receding_horizon=True), batch 1: stance fz "
+        f"{grf[-1, [0, 3], 2].tolist()} N, max swing |f| "
+        f"{float(grf[:, 1:3].abs().max()):.3e} N, GRFs against float64 on "
+        f"the CPU max {gap['max']:.4e} N (gate 0.05); launches "
+        f"{json.dumps(counts)}"]
+    return counts, lines, checks
+
+
+def long_horizon_phase(seed, device, card, batch=LH_BATCH):
+    """The long-horizon paths: the stagewise batch at each of
+    ``LH_HORIZONS`` (``stagewise_batch_lines``), JAX's closed-loop
+    protocol (``stagewise_protocol``), the ``rollout(horizon=40)`` entry
+    point (``rollout_horizon_lines``) and the receding-horizon variant
+    (``receding_lines``), each with the launch counters set to 0 just
+    before it and read just after (the protocol's around each production
+    tick). Returns (counts by path, lines, passed)."""
+    counts, lines, checks = {}, [], {}
+    for h in LH_HORIZONS:
+        c, l, k = stagewise_batch_lines(seed, device, h, batch)
+        counts[f"stagewise_h{h}"] = c
+        lines += l
+        checks.update(k)
+    for name, part in (("protocol_h40", stagewise_protocol),
+                       ("rollout_h40", rollout_horizon_lines)):
+        c, l, k = part(device, card)
+        counts[name] = c
+        lines += l
+        checks.update(k)
+    c, l, k = receding_lines(device)
+    counts["receding"] = c
+    lines += l
+    checks.update(k)
+    lines.append(f"long horizon checks {json.dumps(checks)} "
+                 f"{'PASS' if all(checks.values()) else 'FAIL'}")
     return counts, lines, all(checks.values())
 
 
@@ -1819,7 +2347,10 @@ def main(argv=None):
 
     paths = [("main path", main_path), ("dense chain", dense_chain),
              ("one robot", lambda: single_robot_phase(device, card)),
-             ("polished batched", polished), ("K5", k5_entry)]
+             ("polished batched", polished), ("K5", k5_entry),
+             ("sweep", lambda: sweep_phase(args.seed + 8, device, card)),
+             ("long horizon", lambda: long_horizon_phase(args.seed + 9,
+                                                         device, card))]
     paths += [(f"runtime {preset}", lambda p=preset: runtime(p))
               for preset in RUNTIME]
     for name, path in paths:

@@ -10,20 +10,21 @@ batch of scenarios (a leading axis ``B`` on every ``CtrlState`` leaf):
   whole-batch cold);
 - :func:`control_step` is the per-scenario tick (the JAX package's
   ``control_step`` under vmap): MPC (:func:`compute_grf_mpc`, each
-  scenario routed warm / window / cold on its own) or the balance QP
-  (:func:`compute_grf_qp`).
+  scenario routed warm / window / cold on its own; with
+  ``receding_horizon`` the averaged-euler, receding-foothold condensation
+  solved cold each tick), the long-horizon MPC
+  (:func:`compute_grf_mpc_stagewise`, a ``horizon`` other than 10) or the
+  balance QP (:func:`compute_grf_qp`).
 
 The lazy-factor solve programs reach kernel K1; the dense polished cold
-solve and the balance QP reach K3, through ``ops/admm.py``.
+solve, the receding variant and the balance QP reach K3, through
+``ops/admm.py``; the stagewise solver's Riccati pass reaches K3 at n = 12
+(``ops/stagewise.py``).
 
 The JAX package routes with ``lax.cond`` / ``lax.switch`` on device
 predicates; here the routing is host branching, so a tick waits on the
 device at most twice (see :func:`compute_grf_mpc_batched` and
 :func:`compute_grf_mpc`).
-
-Not ported yet (ROADMAP queue 1, item 12): the receding-horizon
-condensation and the stagewise solver for a horizon other than 10; both
-raise ``NotImplementedError``.
 """
 
 from typing import NamedTuple
@@ -33,7 +34,7 @@ import torch
 from go1_qp_mpc_controller_torch.config import params as P
 from go1_qp_mpc_controller_torch.ctrl import gait, swing, terrain, torque
 from go1_qp_mpc_controller_torch.models import kinematics, srb
-from go1_qp_mpc_controller_torch.ops import admm, observe_ekf, qp
+from go1_qp_mpc_controller_torch.ops import admm, observe_ekf, qp, stagewise
 from go1_qp_mpc_controller_torch.utils import rotations
 from go1_qp_mpc_controller_torch.utils.device import pin_f32_matmuls
 
@@ -63,7 +64,6 @@ _WARM_HEALTH_DUAL_REL = 0.15
 
 MPC = 1   # stance_leg_control_type values (A1CtrlStates.h:330)
 QP = 0
-_LATER = "not ported yet (ROADMAP queue 1, item 12)"
 
 
 class SensorData(NamedTuple):
@@ -237,11 +237,14 @@ def _take(tree, idx):
     return type(tree)(*[a[idx] for a in tree])
 
 
-def _condensed(states, model, params, use_terrain_adapt):
-    """Terrain adaptation, then the lazy horizon-10 condensed QP of every
-    scenario (constant foot positions over the horizon, swing feet at
-    their planned footholds: solution-neutral, and it keeps the KKT
-    nearly constant between transitions). Returns (states, lazy)."""
+def _mpc_inputs(states, model, params, use_terrain_adapt,
+                horizon=P.PLAN_HORIZON):
+    """Terrain adaptation, then what every MPC condensation reads: the
+    state x0, the reference over ``horizon`` steps, the desired world
+    velocity and the feet the MPC holds over the horizon (stance feet where
+    they are, swing feet at their planned footholds: solution-neutral, and
+    it keeps the KKT nearly constant between transitions). Returns
+    (states, x0, x_ref, vel_d_world, foot_pos_mpc)."""
     states = terrain.terrain_adaptation(states, use_terrain_adapt)
     x0 = srb.mpc_state(states.root_euler, states.root_pos,
                        states.root_ang_vel, states.root_lin_vel)
@@ -250,17 +253,56 @@ def _condensed(states, model, params, use_terrain_adapt):
     x_ref = srb.reference_trajectory(
         states.root_pos, states.root_euler, states.root_pos_d,
         states.root_euler_d, states.root_ang_vel_d, vel_d_world,
-        params.mpc_dt)
-    a_c = srb.calculate_A_c(states.root_euler)
+        params.mpc_dt, horizon=horizon)
     foot_pos_mpc = torch.where(states.contacts[..., None],
                                states.foot_pos_abs,
                                states.foot_pos_target_abs)
+    return states, x0, x_ref, vel_d_world, foot_pos_mpc
+
+
+def _discrete(states, model, params, foot_pos_mpc):
+    """(A_d, B_d) of the batch, linearized at the current euler, with B_d
+    shared across the horizon (A1RobotControl.cpp:498-514)."""
+    a_c = srb.calculate_A_c(states.root_euler)
     b_c = srb.calculate_B_c(model.mass, model.trunk_inertia,
                             states.root_rot_mat, foot_pos_mpc)
-    a_d, b_d = srb.discretize(a_c, b_c, params.mpc_dt)
+    return srb.discretize(a_c, b_c, params.mpc_dt)
+
+
+def _condensed(states, model, params, use_terrain_adapt):
+    """Terrain adaptation, then the lazy horizon-10 condensed QP of every
+    scenario. Returns (states, lazy)."""
+    states, x0, x_ref, _, foot_pos_mpc = _mpc_inputs(
+        states, model, params, use_terrain_adapt)
+    a_d, b_d = _discrete(states, model, params, foot_pos_mpc)
     return states, srb.condense_nilpotent_lazy(
         a_d, b_d, x0, x_ref, params.q_weights, params.r_weights,
         states.contacts)
+
+
+def _receding(states, model, params, settings, use_terrain_adapt):
+    """The receding-horizon variant (test/test_mpc.cpp:93-122; commented
+    out in A1RobotControl.cpp:505-509): A_c linearized at the
+    horizon-averaged euler, each step's B from feet displaced by
+    -i v_d dt, condensed in closed form and solved cold every tick by the
+    dense solver (K3, K6) warm-started with primal / dual only."""
+    states, x0, x_ref, vel_d_world, foot_pos_mpc = _mpc_inputs(
+        states, model, params, use_terrain_adapt)
+    a_c = srb.calculate_A_c(srb.averaged_euler(
+        states.root_euler, states.root_ang_vel_d, params.mpc_dt))
+    a_d = torch.eye(srb.NX, dtype=a_c.dtype, device=a_c.device) \
+        + a_c * params.mpc_dt
+    b_d_list = srb.receding_b_d_list(model.mass, model.trunk_inertia,
+                                     states.root_rot_mat, foot_pos_mpc,
+                                     vel_d_world, params.mpc_dt)
+    qp_dense = srb.condense_nilpotent(a_d, b_d_list, x0, x_ref,
+                                      params.q_weights, params.r_weights,
+                                      states.contacts)
+    sol = admm.mpc_solve(qp_dense, settings, warm_x=states.qp_warm_x,
+                         warm_y=states.qp_warm_y)
+    warm_out = admm.WarmState(x=sol.x, y=sol.y, rho=states.qp_warm_rho,
+                              minv=states.qp_warm_minv)
+    return _finish_grf(states, sol.x, warm_out, states.qp_warm_grad)
 
 
 def _scatter(full, idx, sub):
@@ -295,12 +337,16 @@ def compute_grf_mpc(states, model, params, settings=admm.ADMMSettings(),
         tick with ``settings`` (warm-started with primal / dual only).
       warm_mode: "auto" (the routing above), "warm" (always the warm tick:
         the caller owns the cadence) or "cold" (always the cold branch).
-      receding_horizon: not ported yet; raises NotImplementedError.
+      receding_horizon: the averaged-euler, receding-foothold
+        condensation variant instead, solved cold every tick with primal /
+        dual warm starts (``warm_settings`` and ``warm_mode`` are ignored:
+        per-step B breaks the factored form the warm tick needs).
       stats: optional dict; the scenarios of each route ("warm", "window",
         "cold", and "health" for the cold re-solves) are counted into it.
     """
     if receding_horizon:
-        raise NotImplementedError(f"receding_horizon=True is {_LATER}")
+        _count(stats, "cold", states.contacts.shape[0])
+        return _receding(states, model, params, settings, use_terrain_adapt)
     states, lazy = _condensed(states, model, params, use_terrain_adapt)
     batch = lazy.gradient.shape[0]
 
@@ -367,6 +413,111 @@ def compute_grf_mpc(states, model, params, settings=admm.ADMMSettings(),
             warm_out = admm.WarmState(*[_scatter(a, idx, b)
                                         for a, b in zip(warm_out, w_b)])
     return _finish_grf(states, x_sol, warm_out, lazy.gradient)
+
+
+def compute_grf_mpc_stagewise(states, model, params,
+                              settings=admm.ADMMSettings(),
+                              use_terrain_adapt=True,
+                              warm_settings=WARM_SETTINGS, horizon=40,
+                              warm_mode="auto", stats=None):
+    """Long-horizon MPC GRF solve by the stagewise O(H) Riccati-ADMM solver
+    (``ops/stagewise.py``; the JAX package's
+    ``compute_grf_mpc_stagewise``), each scenario routed on its own.
+
+    Steady ticks run one short warm segment (``warm_settings``) from the
+    carried primal / dual; a contact flip, a young carry, the post-flip
+    window, the pre-flip window or a gradient drift against the
+    ``den_sw`` floor route to a full cold solve (``settings``). The
+    carry's flip repair restarts the duals and zeroes the newly swinging
+    legs' forces, as the condensed path does. The cold and warm scenarios
+    are gathered into sub-batches, solved and scattered back: the route
+    vector reaches the host in one device-to-host copy a tick. The state
+    must come from ``init_ctrl_state(horizon=H)``.
+
+    Args:
+      horizon: H > 0, independent of PLAN_HORIZON.
+      warm_settings: the warm segment's settings.
+      warm_mode: "auto", or "warm" / "cold" to take one route for all.
+      stats: optional dict counting the scenarios of each route.
+    """
+    h = horizon
+    states, x0, x_ref, _, foot_pos_mpc = _mpc_inputs(
+        states, model, params, use_terrain_adapt, horizon=h)
+    a_d, b_d = _discrete(states, model, params, foot_pos_mpc)
+    batch = x0.shape[0]
+
+    q_lin = stagewise.linear_term(a_d, b_d, x0, x_ref, params.q_weights,
+                                  params.r_weights).reshape(batch, -1)
+    # the condensed path's force-scale floor (the stagewise per-stage
+    # Hessian block is 2 (R + B'QB))
+    h_diag_sw = 2.0 * (params.r_weights + torch.sum(
+        params.q_weights[:, None] * b_d ** 2, dim=-2))
+    amax = lambda a: torch.amax(torch.abs(a), dim=-1)
+    den_sw = torch.maximum(amax(q_lin),
+                           0.05 * torch.amax(h_diag_sw, dim=-1) * 180.0)
+    grad_drift = amax(q_lin - states.qp_warm_grad) / (den_sw + 1e-9)
+    contact_flip = torch.any(states.contacts != states.qp_warm_contacts,
+                             dim=-1)
+    # the whole post-flip window and the pre-flip guard route cold: the
+    # cold solve is the long-budget program here
+    transition = (contact_flip
+                  | (states.mpc_init_counter < WARM_YOUNG_TICKS)
+                  | _post_flip(states, params) | _pre_flip(states, params)
+                  | (grad_drift > WARM_DRIFT_TOL))
+
+    swing_u = (~states.contacts).repeat_interleave(3, dim=-1).to(x0.dtype)
+    u_carry = states.qp_warm_x.reshape(batch, h, P.NUM_DOF)
+    y_carry = states.qp_warm_y.reshape(batch, h, P.MPC_CONSTRAINT_DIM)
+    flip = contact_flip[:, None, None]
+    warm_in = stagewise.StagewiseWarmState(
+        u=torch.where(flip, u_carry * (1.0 - swing_u)[:, None], u_carry),
+        y=torch.where(flip, torch.zeros_like(y_carry), y_carry),
+        rho=torch.clamp(states.qp_warm_rho, WARM_RHO_MIN, WARM_RHO_MAX),
+        q_lin=states.qp_warm_grad.reshape(batch, h, P.NUM_DOF))
+    settings_t = settings._replace(
+        rho_min=max(settings.rho_min, WARM_RHO_MIN),
+        rho_max=min(settings.rho_max, WARM_RHO_MAX))
+    problem = (a_d, b_d, x0, x_ref, states.contacts)
+
+    def solve(route, sub, warm):
+        """(u, y, rho) of the next carry; its u is the solution."""
+        a, b, x, r, c = sub
+        if route == "cold":
+            _, w = stagewise.mpc_solve(a, b, x, r, params.q_weights,
+                                       params.r_weights, c,
+                                       settings=settings_t, return_warm=True)
+        else:
+            _, w = stagewise.mpc_solve_warm(a, b, x, r, params.q_weights,
+                                            params.r_weights, c, warm,
+                                            settings=warm_settings)
+        return w.u, w.y, w.rho
+
+    if warm_mode in ("warm", "cold"):
+        _count(stats, warm_mode, batch)
+        u, y, rho = solve(warm_mode, problem, warm_in)
+    elif warm_mode != "auto":
+        raise ValueError(f"unknown warm_mode {warm_mode!r}")
+    else:
+        n_cold = int(transition.sum())       # the tick's device-to-host copy
+        if n_cold in (0, batch):
+            route = "cold" if n_cold else "warm"
+            _count(stats, route, batch)
+            u, y, rho = solve(route, problem, warm_in)
+        else:
+            u = torch.empty_like(warm_in.u)
+            y = torch.empty_like(warm_in.y)
+            rho = torch.empty_like(warm_in.rho)
+            # cold scenarios first, each route in ascending order
+            order = torch.sort((~transition).to(torch.int32), stable=True)[1]
+            for route, idx in (("cold", order[:n_cold]),
+                               ("warm", order[n_cold:])):
+                _count(stats, route, idx.shape[0])
+                u[idx], y[idx], rho[idx] = solve(
+                    route, [a[idx] for a in problem], _take(warm_in, idx))
+    u = u.reshape(batch, -1)
+    warm_flat = admm.WarmState(x=u, y=y.reshape(batch, -1), rho=rho,
+                               minv=states.qp_warm_minv)
+    return _finish_grf(states, u, warm_flat, q_lin)
 
 
 def compute_grf_qp(states, model, params, settings=admm.ADMMSettings()):
@@ -549,15 +700,17 @@ def control_step(states, model, params, dt, solver_type=MPC,
     (MPC with per-scenario routing, :func:`compute_grf_mpc`, or the
     balance QP, :func:`compute_grf_qp`) -> torques. Each scenario of the
     batch computes what the JAX package's ``control_step`` computes for
-    it alone. ``horizon`` other than PLAN_HORIZON (the stagewise solver)
-    is not ported yet and raises NotImplementedError."""
-    if horizon is not None and horizon != P.PLAN_HORIZON:
-        raise NotImplementedError(f"horizon={horizon} (the stagewise "
-                                  f"solver) is {_LATER}")
+    it alone. A ``horizon`` other than PLAN_HORIZON routes the MPC solve
+    to the stagewise solver (:func:`compute_grf_mpc_stagewise`; the state
+    must come from ``init_ctrl_state(horizon=...)``)."""
     pin_f32_matmuls()
     states = gait.update_plan(states, params, model)
     states = swing.generate_swing_legs_ctrl(states, params, dt)
-    if solver_type == MPC:
+    if solver_type == MPC and horizon not in (None, P.PLAN_HORIZON):
+        states = compute_grf_mpc_stagewise(
+            states, model, params, settings, use_terrain_adapt,
+            warm_settings, horizon, warm_mode, stats=stats)
+    elif solver_type == MPC:
         states = compute_grf_mpc(states, model, params, settings,
                                  use_terrain_adapt, warm_settings,
                                  receding_horizon, warm_mode, stats=stats)

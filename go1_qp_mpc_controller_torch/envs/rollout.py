@@ -45,12 +45,15 @@ class RolloutTrace(NamedTuple):
 
 
 def init_carry(model, params, batch, height=0.3, movement_mode=0,
-               dtype=torch.float32, device=None, ground_coef=None):
+               dtype=torch.float32, device=None, ground_coef=None,
+               horizon=None):
     """Standing start for ``batch`` scenarios: the plant at ``height`` and
     the controller state synced to it.
 
     ``device=None`` places the carry on the CUDA card and raises when there
-    is none; ``model`` must live on the same device.
+    is none; ``model`` must live on the same device. ``horizon`` sizes the
+    warm-carry fields (``types.init_ctrl_state``); a value other than 10
+    selects the stagewise long-horizon controller path.
     """
     device = resolve_device(device)
     if model.mass.device != device or model.mass.dtype != dtype:
@@ -58,7 +61,8 @@ def init_carry(model, params, batch, height=0.3, movement_mode=0,
                          f"{model.mass.dtype}, the carry on {device} / "
                          f"{dtype}")
     sim = srb_sim.init_sim_state(model, batch, height, ground_coef)
-    ctrl = types.init_ctrl_state(model, batch, dtype, device)
+    kw = {} if horizon is None else {"horizon": horizon}
+    ctrl = types.init_ctrl_state(model, batch, dtype, device, **kw)
     feet_body = sim.foot_pos_world - sim.root_pos[:, None]
     ekf_x, ekf_p = ekf.init_state(sim.root_rot, feet_body)
     ctrl = ctrl._replace(
@@ -132,8 +136,9 @@ def rollout(carry, model, params, num_steps, dt,
         the batched controller state before each tick.
       estimate: True runs the EKF (kernel K2) in the loop; False feeds the
         plant's ground truth.
-      horizon: a horizon other than 10 (the stagewise solver) is not
-        ported yet and raises NotImplementedError.
+      horizon: the MPC horizon; a value other than 10 routes the GRF solve
+        to the stagewise O(H) solver (the carry must come from
+        ``init_carry(horizon=...)``).
       stats: optional dict counting the scenarios of each GRF route.
 
     Returns:

@@ -5,18 +5,22 @@ Main{Gazebo,Hardware,Isaac}.cpp executables and roslaunch preset
 selection, launch/a1_ctrl.launch:1-8):
 
   python -m go1_qp_mpc_controller_torch.main --preset gazebo_mpc rollout
+  python -m go1_qp_mpc_controller_torch.main --preset gazebo_mpc sweep
   python -m go1_qp_mpc_controller_torch.main --preset gazebo_mpc loop \
       --duration 5 --time-scale 0.1 --estimate-in-feed
 
 Modes:
   rollout - closed-loop trot of one robot on the SRB simulator (the Gazebo
-            stand-in), printing tracking statistics.
+            stand-in), printing tracking statistics; ``--horizon H`` other
+            than 10 solves the GRFs with the stagewise long-horizon solver.
+  sweep   - a batch of randomized MPC scenarios solved on one card.
   loop    - the real-time host loop against the C++ bridge, fed by the
             simulated 1 kHz sensor feed (or an external feed with
             --no-feeder).
 
-Both run on the CUDA card unless ``--device cpu`` is given. Not ported yet:
-the ``sweep``, ``rl`` and ``rl-loop`` modes (ROADMAP items 13 and 14).
+All run on the CUDA card unless ``--device cpu`` is given. Not ported yet:
+the ``rl`` and ``rl-loop`` modes and a sweep across devices
+(``--mpc-parallel`` > 1), ROADMAP queue 1.
 """
 
 import argparse
@@ -34,13 +38,11 @@ def cmd_rollout(args, model, params, static, device):
     if args.trace or args.plot:
         raise NotImplementedError("--trace / --plot (utils/viz.py) are not "
                                   "ported yet (ROADMAP queue 1, item 16)")
-    if args.horizon is not None and args.horizon != 10:
-        raise NotImplementedError(f"--horizon {args.horizon} (the stagewise "
-                                  "solver) is not ported yet (ROADMAP queue "
-                                  "1, item 12)")
     f32 = torch.float32
+    # the stagewise path sizes the warm carry for its horizon
     carry = rollout.init_carry(model, params, 1, height=args.height,
-                               dtype=f32, device=device)
+                               dtype=f32, device=device,
+                               horizon=args.horizon)
 
     def command(i, ctrl):
         walk = i >= 100
@@ -73,6 +75,29 @@ def cmd_rollout(args, model, params, static, device):
         "height_range": [round(float(pos[100:, 2].min()), 4),
                          round(float(pos[100:, 2].max()), 4)],
         "max_tilt_rad": round(float(np.abs(euler[100:, :2]).max()), 4),
+    }))
+
+
+def cmd_sweep(args, model, params, static, device):
+    import torch
+
+    from go1_qp_mpc_controller_torch.ops import admm
+    from go1_qp_mpc_controller_torch.parallel import sweep
+
+    if args.mpc_parallel != 1:
+        raise NotImplementedError(
+            f"--mpc-parallel {args.mpc_parallel}: the sweep across devices "
+            f"and its mpc-axis condensation are not ported yet (ROADMAP "
+            f"queue 1, the multi-device sweep)")
+    fn = sweep.make_sweep_fn(device, float(params.mpc_dt),
+                             admm.ADMMSettings(seg_iters=25, segments=3))
+    out = fn(sweep.random_scenarios(args.seed, args.batch, torch.float32,
+                                    device))
+    print(json.dumps({
+        "num_solves": out.stats["num_solves"],
+        "max_primal_res": float(out.stats["max_primal_res"]),
+        "max_dual_res": float(out.stats["max_dual_res"]),
+        "mesh": {"data": 1, "mpc": 1},
     }))
 
 
@@ -175,13 +200,20 @@ def main(argv=None):
     p.add_argument("--height", type=float, default=0.3)
     p.add_argument("--no-ekf", action="store_true")
     p.add_argument("--horizon", type=int, default=None,
-                   help="MPC horizon; only 10 is ported (the stagewise "
-                        "solver for other values is not)")
+                   help="MPC horizon; values != 10 route the GRF solve "
+                        "to the stagewise O(H) solver")
     p.add_argument("--trace", default=None, metavar="OUT.npz",
                    help="not ported yet")
     p.add_argument("--plot", default=None, metavar="OUT.png",
                    help="not ported yet")
     p.set_defaults(fn=cmd_rollout)
+
+    p = sub.add_parser("sweep")
+    p.add_argument("--batch", type=int, default=4096)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--mpc-parallel", type=int, default=1,
+                   help="only 1 (one card) is ported")
+    p.set_defaults(fn=cmd_sweep)
 
     p = sub.add_parser("loop")
     p.add_argument("--dt", type=float, default=0.002)

@@ -96,10 +96,11 @@ class CtrlState(NamedTuple):
     estimator_x: torch.Tensor          # (18,)
     estimator_P: torch.Tensor          # (18, 18)
     estimated_contacts: torch.Tensor   # (4,) bool
-    qp_warm_x: torch.Tensor            # (120,) primal carry
-    qp_warm_y: torch.Tensor            # (200,) dual carry
+    qp_warm_x: torch.Tensor            # (120,) primal carry (12 H stagewise)
+    qp_warm_y: torch.Tensor            # (200,) dual carry (20 H stagewise)
     qp_warm_rho: torch.Tensor          # () adapted ADMM step size
     qp_warm_minv: torch.Tensor         # (120, 120) carried KKT inverse
+                                       # ((1, 1) placeholder stagewise)
     qp_warm_contacts: torch.Tensor     # (4,) pattern the carry was built for
     qp_warm_grad: torch.Tensor         # (120,) gradient the carry solved
 
@@ -145,13 +146,22 @@ def default_ctrl_params(dtype=torch.float32, device=None):
     )
 
 
-def init_ctrl_state(model, batch, dtype=torch.float32, device=None):
+def init_ctrl_state(model, batch, dtype=torch.float32, device=None,
+                    horizon=P.PLAN_HORIZON):
     """Fresh batched controller state in the default stand pose.
 
     Gait counters start at the trot offsets (0, 120, 120, 0)
     (A1CtrlStates.h:323-327). The carried contact pattern starts all-false,
     which differs from every reachable schedule, so the first MPC tick
     always takes the cold branch.
+
+    Args:
+      horizon: the MPC horizon the warm-carry fields are sized for. The
+        default PLAN_HORIZON = 10 gives the condensed solver's shapes
+        (120 / 200 and the carried KKT inverse); any other value sizes the
+        primal / dual / gradient carries 12 H / 20 H / 12 H for the
+        stagewise solver (``controller.compute_grf_mpc_stagewise``), which
+        carries no KKT inverse: qp_warm_minv is a (B, 1, 1) placeholder.
     """
     device = resolve_device(device)
     b = (batch,)
@@ -188,8 +198,10 @@ def init_ctrl_state(model, batch, dtype=torch.float32, device=None):
             4, 60, b, (3,), dtype, device),
         estimator_x=zeros(18), estimator_P=3.0 * eye(18),
         estimated_contacts=bzeros(),
-        qp_warm_x=zeros(P.MPC_NV), qp_warm_y=zeros(P.MPC_NC),
+        qp_warm_x=zeros(P.NUM_DOF * horizon),
+        qp_warm_y=zeros(P.MPC_CONSTRAINT_DIM * horizon),
         qp_warm_rho=torch.full(b, 0.1, **kw),
-        qp_warm_minv=eye(P.MPC_NV),
-        qp_warm_contacts=bzeros(), qp_warm_grad=zeros(P.MPC_NV),
+        qp_warm_minv=(eye(P.MPC_NV) if horizon == P.PLAN_HORIZON
+                      else zeros(1, 1)),
+        qp_warm_contacts=bzeros(), qp_warm_grad=zeros(P.NUM_DOF * horizon),
     )

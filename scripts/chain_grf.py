@@ -6,8 +6,10 @@ For each seed and each ``--root`` (a checkout, e.g. one unpacked from
 ``git archive``), a process of its own runs that checkout's dense chain on
 the card: ``chip_smoke.dense_chain_phase``'s chain (a fresh cold solve,
 then ``CHAIN_TICKS`` warm ticks of ``mpc_solve_warm_batch`` at batch 4096,
-bench.py:470-504's settings and drift) on ``chip_smoke.random_scenarios``
-of the seed, keeping the last tick's first-step GRFs of the first
+bench.py:470-504's settings and drift) on that checkout's
+``chip_smoke.random_scenarios`` of the seed (the same draws in every
+checkout: a dict before the port had ``parallel/sweep.py``, an
+``MpcScenario`` since), keeping the last tick's first-step GRFs of the first
 ``TIGHT_SCENARIOS`` scenarios. This checkout then holds every root's GRFs
 against the same reference, ``chip_smoke.tight_reference`` (the tight
 polished solve in float64 on the CPU, which no kernel's rounding moves),
@@ -30,6 +32,11 @@ import tempfile
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def field(scn, name):
+    """A field of a scenario batch, a dict or an ``MpcScenario``."""
+    return scn[name] if isinstance(scn, dict) else getattr(scn, name)
+
+
 def chain(admm, admm_iterations, condense, scn, ticks):
     """The last tick's solution of the dense warm chain on ``scn`` (its
     device and dtype): ``admm.mpc_solve_cold`` on the lazy QPs, then
@@ -41,19 +48,20 @@ def chain(admm, admm_iterations, condense, scn, ticks):
                                       schulz_impl="pallas")
     settings_warm = admm.ADMMSettings(seg_iters=15, segments=1, polish=False,
                                       schulz_refine=1, schulz_impl="pallas")
-    dtype = scn["x0"].dtype
-    x0 = scn["x0"].float()
+    x0, mu = field(scn, "x0"), field(scn, "mu")
+    dtype = x0.dtype
+    _, warm = admm.mpc_solve_cold(condense(scn, x0, dense=False),
+                                  settings_cold, mu=mu,
+                                  contacts=field(scn, "contacts"),
+                                  foot_pos=field(scn, "foot_pos"))
+    x0 = x0.float()
     drift = torch.zeros_like(x0)
     drift[:, 9] = 0.001
     drift[:, 3] = 0.0005
-    _, warm = admm.mpc_solve_cold(condense(scn, scn["x0"], dense=False),
-                                  settings_cold, mu=scn["mu"],
-                                  contacts=scn["contacts"],
-                                  foot_pos=scn["foot_pos"])
     for _ in range(ticks):
         x0 = x0 + drift
         qps = condense(scn, x0.to(dtype), dense=True)
-        sol, warm = admm_iterations.mpc_solve_warm_batch(qps, warm, scn["mu"],
+        sol, warm = admm_iterations.mpc_solve_warm_batch(qps, warm, mu,
                                                          settings_warm)
     return sol, x0
 
@@ -103,6 +111,7 @@ def main(argv=None):
 
     import chip_smoke as cs
     from go1_qp_mpc_controller_torch.ops import admm, admm_iterations
+    from go1_qp_mpc_controller_torch.parallel import sweep
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the chains run on a GPU")
@@ -127,12 +136,11 @@ def main(argv=None):
               f"{float(torch.quantile(err, 0.9)):.4f} N", flush=True)
 
     for seed in seeds:
-        scn = {k: v[:n] if v.shape[0] == cs.BATCH else v
-               for k, v in cs.random_scenarios(cs.BATCH, seed, cpu).items()}
+        scn = sweep.take(cs.random_scenarios(cs.BATCH, seed, cpu),
+                         slice(0, n))
         plain = {}
         for dtype in (torch.float32, torch.float64):
-            scn_d = {k: v.to(dtype) if v.is_floating_point() else v
-                     for k, v in scn.items()}
+            scn_d = cs.on_cpu(scn, dtype)
             plain[dtype], x0 = chain(admm, admm_iterations, cs.condense,
                                      scn_d, cs.CHAIN_TICKS)
         tight = cs.tight_reference(scn, x0, n)

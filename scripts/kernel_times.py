@@ -61,24 +61,27 @@ def consecutive_times(fns, reps=5):
 
 def k6_operands(chip_smoke, batch, seed, device):
     """K6's operands of a warm tick of the dense chain: a cold solve of
-    ``chip_smoke.random_scenarios``, then five warm ticks with the chain's
-    drift."""
+    ``chip_smoke.random_scenarios`` (a dict before the port had
+    ``parallel/sweep.py``, an ``MpcScenario`` since; the same draws), then
+    five warm ticks with the chain's drift."""
     import torch
     from go1_qp_mpc_controller_torch.ops import admm, admm_iterations
 
     scn = chip_smoke.random_scenarios(batch, seed, device)
-    mu = scn["mu"]
+    field = lambda name: (scn[name] if isinstance(scn, dict)
+                          else getattr(scn, name))
+    mu = field("mu")
     _, warm = admm.mpc_solve_cold(
-        chip_smoke.condense(scn, scn["x0"], dense=False),
+        chip_smoke.condense(scn, field("x0"), dense=False),
         admm.ADMMSettings(seg_iters=40, segments=1, polish=False,
                           schulz_l0=1e-6, schulz_hi_tail=1),
-        mu=mu, contacts=scn["contacts"], foot_pos=scn["foot_pos"])
+        mu=mu, contacts=field("contacts"), foot_pos=field("foot_pos"))
     settings = admm.ADMMSettings(seg_iters=15, segments=1, polish=False,
                                  schulz_refine=1)
     drift = torch.zeros((batch, 13), device=device)
     drift[:, 9] = 0.001
     drift[:, 3] = 0.0005
-    x0 = scn["x0"]
+    x0 = field("x0")
     for _ in range(5):
         x0 = x0 + drift
         qps = chip_smoke.condense(scn, x0, dense=True)

@@ -10,10 +10,11 @@ routes, launches, health): the batched paths (main, polished, chain), one
 robot (``single_robot_phase``: the trot and the balance-QP stand at batch
 1), the balance-QP stand alone with a profile of its device time (qp) and
 the real-time runtime (``runtime_phase`` on each of the checkout's
-``RUNTIME`` presets). The host sets the pace of these paths and its speed
-varies from run to run, so compare two commits on one card by running
-this in one call for parent, change, change, parent (each run a fresh
-process):
+``RUNTIME`` presets), the scenario sweep (``sweep_phase``) and the long
+horizon (``long_horizon_phase``). The host sets the pace of these paths
+and its speed varies from run to run, so compare two commits on one card
+by running this in one call for parent, change, change, parent (each run
+a fresh process):
 
     python3 scripts/path_times.py --root build/parent --paths main,polished
     python3 scripts/path_times.py --root build/parent --paths robot,runtime
@@ -23,7 +24,8 @@ import argparse
 import os
 import sys
 
-PATHS = ("main", "polished", "chain", "robot", "qp", "runtime")
+PATHS = ("main", "polished", "chain", "robot", "qp", "runtime", "sweep",
+         "long")
 
 
 def qp_stand(cs, device):
@@ -95,6 +97,9 @@ def main(argv=None):
         "qp": lambda: qp_stand(cs, device),
         "runtime": lambda: [line for preset in cs.RUNTIME for line in
                             cs.runtime_phase(preset, device, card)[1]],
+        "sweep": lambda: cs.sweep_phase(args.seed + 8, device, card)[1],
+        "long": lambda: cs.long_horizon_phase(args.seed + 9, device,
+                                              card)[1],
     }
     print(f"root {args.root}: card {card}", flush=True)
     for path in paths:

@@ -151,10 +151,16 @@ def test_other_modes_match_jax(mixed, mode):
 
 
 def test_unported_variants_raise(mixed):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        _port_tick(mixed, horizon=40)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_ctrl.compute_grf_mpc(_to_port(mixed).ctrl,
-                               t_types.default_robot_model(F64, "cpu"),
-                               t_types.default_ctrl_params(F64, "cpu"),
-                               receding_horizon=True)
+    """The variants that raised before the long-horizon port now run
+    (their parity is in tests/test_torch_long_horizon.py); what still
+    raises is a horizon the carry was not sized for and an unknown
+    warm_mode."""
+    model = t_types.default_robot_model(F64, "cpu")
+    params = t_types.default_ctrl_params(F64, "cpu")
+    ctrl = _to_port(mixed).ctrl
+    out = t_ctrl.compute_grf_mpc(ctrl, model, params, receding_horizon=True)
+    assert torch.isfinite(out.foot_forces_grf).all()
+    with pytest.raises(RuntimeError):
+        _port_tick(mixed, horizon=40)       # a horizon-10 carry
+    with pytest.raises(ValueError, match="warm_mode"):
+        t_ctrl.compute_grf_mpc(ctrl, model, params, warm_mode="bogus")

@@ -425,18 +425,18 @@ def _k6_inputs(batch, device, seed=3):
     and stance, any float32 loop, the plain one included, strays from the
     float64 loop by more than the 1e-3 tolerance.)"""
     scn = chip_smoke.random_scenarios(batch, seed, device)
-    mu = scn["mu"]
+    mu = scn.mu
     _, warm = admm.mpc_solve_cold(
-        chip_smoke.condense(scn, scn["x0"], dense=False),
+        chip_smoke.condense(scn, scn.x0, dense=False),
         admm.ADMMSettings(seg_iters=40, segments=1, polish=False,
                           schulz_l0=1e-6, schulz_hi_tail=1),
-        mu=mu, contacts=scn["contacts"], foot_pos=scn["foot_pos"])
+        mu=mu, contacts=scn.contacts, foot_pos=scn.foot_pos)
     settings = admm.ADMMSettings(seg_iters=15, segments=1, polish=False,
                                  schulz_refine=1)
     drift = torch.zeros((batch, 13), device=device)
     drift[:, 9] = 0.001
     drift[:, 3] = 0.0005
-    x0 = scn["x0"]
+    x0 = scn.x0
     for _ in range(5):
         x0 = x0 + drift
         qps = chip_smoke.condense(scn, x0, dense=True)
@@ -876,3 +876,143 @@ def test_dense_paths_launch_k3_and_k6(card):
     torch.cuda.synchronize()
     assert schulz_batch.launches == 1 and admm_iterations.launches == 1
     assert torch.isfinite(sol.x).all()
+
+
+def test_k3_n12_matches_plain_on_riccati_matrices(card):
+    """K3 at n = 12 on the matrices the stagewise Riccati pass hands it
+    (every stage of the first pass of a cold H = 40 solve, batch 256, and
+    each stage's first matrix alone, the one robot's batch), with the
+    pass's scaled l0 = 1e-7 schedule: one launch a stage on the "n12"
+    route, each within 3e-4 of the plain version per scenario."""
+    g = chip_smoke.riccati_g(256, 5, card)
+    coeffs = admm._scaled_schulz_coeffs(1e-7)
+    for m in [s.contiguous() for stage in g for s in (stage, stage[:1])]:
+        schulz_batch.reset_launches()
+        got = schulz_batch.schulz_inverse_batch(m, coeffs=coeffs)
+        assert schulz_batch.route_launches["n12"] == 1
+        want = kkt_schulz.schulz_balanced_plain(m, None, coeffs)
+        assert torch.isfinite(got).all()
+        assert float(_balanced_error(got, want, m).max()) <= 3e-4
+
+
+@pytest.mark.parametrize("route", ["dense", "fused"])
+def test_sweep_routes_match_float64_at_batch_4096(card, route):
+    """Each sweep route at batch 4096 on the card (the dense polished
+    route on K3 and K6, the fused cold route on K1 and K6): the first 64
+    scenarios' GRFs against the same solve in float64 on the CPU, within
+    ``chip_smoke.f64_gate`` of the plain float32 version's distance."""
+    from go1_qp_mpc_controller_torch.parallel import sweep
+
+    settings = admm.ADMMSettings(**(chip_smoke.SWEEP_DENSE if route == "dense"
+                                    else chip_smoke.SWEEP_FUSED))
+    scn = sweep.random_scenarios(11, 4096, F32, card)
+    for module in (kkt_schulz, schulz_batch, admm_iterations):
+        module.reset_launches()
+    out = sweep.make_sweep_fn(card, 0.0025, settings)(scn)
+    torch.cuda.synchronize()
+    if route == "dense":
+        assert schulz_batch.launches == settings.segments
+        assert kkt_schulz.launches == 0
+    else:
+        assert kkt_schulz.launches == 1 and schulz_batch.launches == 0
+    assert admm_iterations.launches >= 1
+    assert torch.isfinite(out.forces_all).all()
+    head = sweep.take(scn, slice(0, 64))
+    ref = {dt: sweep.make_sweep_fn("cpu", 0.0025, settings)(
+        chip_smoke.on_cpu(head, dt)).grf
+        for dt in (torch.float64, torch.float32)}
+    card_gap = chip_smoke.grf_gap(out.grf[:64], ref[torch.float64])
+    plain_gap = chip_smoke.grf_gap(ref[torch.float32], ref[torch.float64])
+    assert chip_smoke.f64_gate(card_gap, plain_gap), (card_gap, plain_gap)
+
+
+def test_stagewise_replay_equals_eager(card):
+    """The stagewise solve with its iterations replayed as CUDA graphs
+    equals the eager one bit for bit, and both launch K3 at n = 12 once a
+    stage a Riccati pass (3 segments of a cold solve at H = 40)."""
+    from go1_qp_mpc_controller_torch.ops import stagewise
+    from go1_qp_mpc_controller_torch.parallel import sweep
+
+    scn = sweep.random_scenarios(12, 64, F32, card)
+    sols = {}
+    for replay in (True, False):
+        stagewise.REPLAY = replay
+        try:
+            schulz_batch.reset_launches()
+            sols[replay] = chip_smoke.stagewise_chain(scn, 40, 2)
+            torch.cuda.synchronize()
+        finally:
+            stagewise.REPLAY = True
+        assert schulz_batch.route_launches["n12"] == 40 * (3 + 2)
+    for got, want in zip(sols[True], sols[False]):
+        assert torch.isfinite(got.u).all()
+        assert torch.equal(got.u, want.u) and torch.equal(got.y, want.y)
+
+
+def _mixed_route_ticks(device, batch, ticks, n_cold=5, h=40):
+    """``ticks`` standing ticks of ``control_step(horizon=h)`` at ``batch``
+    after a first all-cold tick, the first ``n_cold`` scenarios made young
+    before each (a cold solve) and the others old (a warm tick). Returns
+    (GRFs a tick, routes a tick)."""
+    from go1_qp_mpc_controller_torch.ctrl import controller
+
+    model = types.default_robot_model(F32, device)
+    params = types.default_ctrl_params(F32, device)
+    ctrl = rollout.init_carry(model, params, batch, dtype=F32, device=device,
+                              horizon=h).ctrl
+    kw = dict(settings=admm.ADMMSettings(**chip_smoke.LH_COLD),
+              warm_settings=admm.ADMMSettings(**chip_smoke.LH_WARM),
+              use_terrain_adapt=False, horizon=h)
+    young = torch.arange(batch, device=device) < n_cold
+    grfs, routes = [], []
+    for tick in range(ticks + 1):
+        if tick:
+            ctrl = ctrl._replace(mpc_init_counter=torch.where(
+                young, 0, 1000).to(ctrl.mpc_init_counter.dtype))
+        stats = {}
+        ctrl = controller.control_step(ctrl, model, params, 0.002,
+                                       stats=stats, **kw)
+        grfs.append(ctrl.foot_forces_grf.clone())
+        routes.append(stats)
+    return grfs, routes
+
+
+def test_stagewise_routed_batch_captures_each_bucket_once(card, monkeypatch):
+    """A routed tick at H = 40 splits the batch into cold and warm
+    sub-batches: each replays at its power-of-two bucket, so a run of
+    ticks with the same split captures each (bucket, schedule) once, holds
+    no more memory after its first mixed ticks, and gives the GRFs of the
+    eager solve (1e-3 N; the padding changes only the batched products'
+    batch count)."""
+    from go1_qp_mpc_controller_torch.ops import stagewise
+    from go1_qp_mpc_controller_torch.utils import graphs
+
+    captured = []
+
+    class Counted(graphs.CapturedStep):
+        def __init__(self, fn, u, *rest):
+            captured.append(tuple(u.shape))
+            super().__init__(fn, u, *rest)
+
+    monkeypatch.setattr(stagewise.graphs, "CapturedStep", Counted)
+    monkeypatch.setattr(stagewise, "_captured", {})
+    batch, ticks = 200, 8
+    got, routes = _mixed_route_ticks(card, batch, 2)
+    torch.cuda.synchronize()
+    before, n_before = torch.cuda.memory_allocated(card), len(captured)
+    more, more_routes = _mixed_route_ticks(card, batch, ticks)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(card) - before
+    assert routes[0] == {"cold": batch}
+    assert all(r == {"cold": 5, "warm": batch - 5}
+               for r in routes[1:] + more_routes[1:])
+    # the all-cold tick pads 200 to 256; the mixed ticks replay the 5 cold
+    # scenarios at 8 and the 195 warm ones at 256
+    assert sorted(set(captured)) == [(8, 40, 12), (256, 40, 12)]
+    assert len(captured) == n_before == 3, captured
+    assert grown < 1 << 20, grown
+    monkeypatch.setattr(stagewise, "REPLAY", False)
+    eager, _ = _mixed_route_ticks(card, batch, ticks)
+    for a, b in zip(more, eager):
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-3)

@@ -127,9 +127,10 @@ def test_trot_rollout_walks_f32():
 
 
 def test_port_imports_no_jax():
-    """In a fresh interpreter, one CPU tick of the port (batched, and
-    per scenario with the polished dense solve) loads neither JAX nor the
-    JAX package."""
+    """In a fresh interpreter, one CPU tick of the port (batched, per
+    scenario with the polished dense solve, and at horizon 20 on the
+    stagewise solver) and a small sweep load neither JAX nor the JAX
+    package."""
     code = (
         "import sys, torch\n"
         "from go1_qp_mpc_controller_torch.envs import rollout\n"
@@ -142,6 +143,12 @@ def test_port_imports_no_jax():
         "s = admm.ADMMSettings(polish=False, schulz_impl='auto')\n"
         "rollout.rollout_batched(c, m, p, 1, 0.002, settings=s)\n"
         "rollout.rollout(c, m, p, 1, 0.002)\n"
+        "short = admm.ADMMSettings(seg_iters=2, segments=1, polish=False)\n"
+        "c20 = rollout.init_carry(m, p, 1, device='cpu', horizon=20)\n"
+        "rollout.rollout(c20, m, p, 1, 0.002, horizon=20, settings=short)\n"
+        "from go1_qp_mpc_controller_torch.parallel import sweep\n"
+        "sweep.make_sweep_fn('cpu', 0.0025, short)(\n"
+        "    sweep.random_scenarios(0, 2, device='cpu'))\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('go1_qp_mpc_controller_tpu')]\n"
         "assert not bad, bad\n"

@@ -470,11 +470,13 @@ def test_main_rollout_runs_and_refuses_what_is_not_ported(capsys):
     assert set(out) == {"final_pos", "mean_vx", "height_range",
                         "max_tilt_rad"}
     assert np.isfinite(out["final_pos"]).all()
-    for extra in (["--trace", "x.npz"], ["--plot", "x.png"],
-                  ["--horizon", "40"]):
+    for extra in (["--trace", "x.npz"], ["--plot", "x.png"]):
         with pytest.raises(NotImplementedError):
             t_main.main(["--device", "cpu", "rollout", "--steps", "2"]
                         + extra)
+    with pytest.raises(NotImplementedError):
+        t_main.main(["--device", "cpu", "sweep", "--batch", "2",
+                     "--mpc-parallel", "2"])
 
 
 def test_feeder_carry_matches_rollout_init():
