@@ -31,14 +31,25 @@ just after it:
   n = 12 once a stage a Riccati pass) at batch 1024 for H = 40 and 120,
   cold and warm; the JAX package's closed-loop protocol at H = 40; the
   ``rollout(horizon=40)`` entry point; five receding-horizon ticks
-  (K3, K6).
+  (K3, K6);
+- the RL stack (``main.py rl``): ``rollout.rl_rollout`` at batch 4096 and
+  1 (no counted kernel: each tick is one CUDA graph replay);
+- the RL host loop (``main.py rl-loop``): ``RLControlLoop`` against the
+  simulated feed on rl_gazebo at time scales 0.5 and 1 (K4 once an action
+  tick);
+- the log replay (``envs/replay.py``): a recorded one-robot trot replayed
+  through ``replay_rollout`` (K1, K2, K3, K6), and a joint signal through
+  ``replay_joint_signal``;
+- robustness and terrain: the NaN sensor spike, the uphill and the
+  turning trot at the JAX tests' lengths (batch 1), and a poisoned
+  scenario in a batch of 4096 through the fused cold route (K1, K6).
 
 K4 (the EKF innovation inverse) is also held against its plain version at
 batch 4096 on its own, like K1, K2 and K3, and at batch 1 on the live
-filter's innovation matrix after each runtime run. K1 is also held at
-batch 128 (the main path's compacted cold sub-batch) and 1, K2 at batch 1,
-K3 at n = 120 at batch 16 and 1 (its cluster route); K3's routes are
-timed against each other at batch 1-32, and K1's and K3's launches are
+filter's innovation matrix after each runtime and RL-loop run. K1 is also
+held at batch 128 (the main path's compacted cold sub-batch) and 1, K2 at
+batch 1, K3 at n = 120 at batch 16 and 1 (its cluster route); K3's routes
+are timed against each other at batch 1-32, and K1's and K3's launches are
 printed by route for each path. Kernel, plain version and library call
 are timed in turn, as medians of interleaved spans.
 
@@ -1992,25 +2003,31 @@ def k4_phase(batch, gen, seed, device, reps):
     return record, lines, all(r["passed"] for r in records.values())
 
 
-def k4_live_check(est, bridge):
-    """K4 against its plain version at the shape the runtime gives it: the
-    (1, 28, 28) innovation matrix of the live filter (the estimator
-    thread's last estimate and the feed's last frame, through the
-    estimator's predict graph), with the innovation set's tolerances.
-    Returns (line, passed)."""
-    import numpy as np
+def k4_live_line(s_mat):
+    """K4 against its plain version at the shape a runtime gives it: a live
+    filter's (1, 28, 28) innovation matrix ``s_mat``, with the innovation
+    set's tolerances. Returns (line, passed)."""
     from go1_qp_mpc_controller_torch.ops import admm, ekf
+
+    r, passed = k4_check(s_mat.clone(), admm._scaled_schulz_coeffs(
+        ekf.SINV_L0), K4_S_TOL, K4_S_RES_TOL)
+    return (f"{k4_line('live frame (1, 28, 28)', r, K4_S_TOL, K4_S_RES_TOL)} "
+            f"{'PASS' if passed else 'FAIL'}"), passed
+
+
+def k4_live_check(est, bridge):
+    """:func:`k4_live_line` on the estimator thread's live filter: its
+    last estimate and the feed's last frame, through the estimator's
+    predict graph."""
+    import numpy as np
 
     _, s = bridge.read_sensors()
     x, p, _ = est.snapshot()
     frame = est._frame(np.concatenate([
         s["quat"], s["acc"], s["gyro"], s["joint_pos"], s["joint_vel"],
         s["foot_force"]]), est.period)
-    s_mat = est._predict(x, p, frame, est._mode(est.movement_mode)).s_mat
-    r, passed = k4_check(s_mat.clone(), admm._scaled_schulz_coeffs(
-        ekf.SINV_L0), K4_S_TOL, K4_S_RES_TOL)
-    return (f"{k4_line('live frame (1, 28, 28)', r, K4_S_TOL, K4_S_RES_TOL)} "
-            f"{'PASS' if passed else 'FAIL'}"), passed
+    return k4_live_line(
+        est._predict(x, p, frame, est._mode(est.movement_mode)).s_mat)
 
 
 def k5_phase(device, reps):
@@ -2243,6 +2260,543 @@ def runtime_phase(preset, device, card, time_scale=None, duration=None):
     return counts, lines, all(checks.values())
 
 
+# The RL stack (main.py rl's defaults: RL_TICKS ticks at RL_DT, the
+# A-button press to the walk policy at RL_SWITCH, vx RL_VX), at batch
+# RL_BATCH and 1, each scenario's start velocity moved by a seeded draw
+RL_BATCH = 4096
+RL_TICKS = 800
+RL_SWITCH = 400
+RL_DT = 0.004
+RL_VX = 0.3
+RL_SPANS = 5
+RL_DV = 0.02                  # m/s, the start velocities' spread
+# the card's first scenarios held against the same actor in float64 on
+# the CPU over the servo phase and the first walk ticks: within
+# RL_F64_FACTOR x the CPU float32 run's distance + RL_F64_FLOOR (on the
+# CPU, float32 sits 3.2e-4 / 8.1e-5 / 6.7e-7 from float64 on obs /
+# target_q / root_pos over these ticks; summation order moves the card's
+# float32 by as much again)
+RL_F64_SCENARIOS = 4
+RL_F64_WALK_TICKS = 20
+RL_F64_FACTOR = 4.0
+RL_F64_FLOOR = 1e-5
+RL_PROFILE_TICKS = (20, 80)
+# the RL host loop (main.py rl-loop) on rl_gazebo (4 ms actions, 2 ms
+# feed): RL_LOOP_SECONDS of wall time a scale, the press at half time;
+# at the JAX test's scale 0.5 it must keep up (tests/test_rl_loop.py)
+RL_LOOP_SCALES = (0.5, 1.0)
+RL_LOOP_SECONDS = 4.0
+RL_LOOP_OVERRUN_SHARE = 0.2
+# replay: a one-robot gazebo_mpc trot recorded from rollout and replayed;
+# each tick replays the same operations on the same inputs, so the
+# replayed torques and GRFs are the recorded ones to REPLAY_TOL (N, N m)
+REPLAY_TICKS = 400
+REPLAY_WALK_AT = 100
+REPLAY_VX = 0.3
+REPLAY_TOL = 1e-3
+# the joint-signal replay at tests/test_replay_checkpoint.py's length:
+# past ~200 ticks the plant, its stance feet pinned, stops following the
+# sine (both packages: correlation 0.75 at 200 ticks, -0.04 at 400)
+SIGNAL_TICKS = 120
+# robustness and terrain, at tests/test_robustness.py's and
+# tests/test_terrain_turning.py's lengths, batch 1, float32
+SPIKE_SETTLE_TICKS = 100
+SPIKE_RESUME_TICKS = 400
+TERRAIN_TICKS = 1200
+POISON_BATCH = 4096
+POISONED = 1234
+
+
+def rl_carry(model, batch, dv):
+    """``rollout.init_rl_carry`` with the start velocities moved by
+    ``dv`` (batch, 3)."""
+    from go1_qp_mpc_controller_torch.envs import rollout
+
+    carry = rollout.init_rl_carry(model, batch, dtype=model.mass.dtype,
+                                  device=model.mass.device)
+    return carry._replace(sim=carry.sim._replace(
+        root_lin_vel=carry.sim.root_lin_vel + dv.to(carry.sim.root_pos)))
+
+
+def rl_run(carry, model, actor, ticks, on_command=None):
+    """``rollout.rl_rollout`` with main.py rl's commands; ``on_command``
+    is called on the host at each tick's command."""
+    from go1_qp_mpc_controller_torch.envs import rollout
+
+    def command(i):
+        if on_command is not None:
+            on_command(i)
+        return [RL_VX, 0.0, 0.0] if i >= RL_SWITCH else [0.0] * 3
+
+    return rollout.rl_rollout(carry, model, actor, ticks, RL_DT,
+                              command_fn=command,
+                              toggle_fn=lambda i: i == RL_SWITCH)
+
+
+def rl_criteria(tr):
+    """tests/test_rl.py's criteria on every scenario of the trace."""
+    import torch
+    from go1_qp_mpc_controller_torch.ctrl import rl
+
+    row = lambda v: torch.tensor(v, dtype=tr.kp.dtype, device=tr.kp.device)
+    q = tr.target_q
+    return {
+        "finite": bool(torch.isfinite(tr.obs).all()
+                       and torch.isfinite(q).all()),
+        "obs_clipped": float(tr.obs[..., :36].abs().max()) <= rl.CLIP_OBS,
+        "targets_in_pose_clip": bool(
+            (q >= row(rl.CLIP_POSE_LOWER) - 1e-5).all()
+            and (q <= row(rl.CLIP_POSE_UPPER) + 1e-5).all()),
+        "servo_gains_before_press": bool(
+            (tr.kp[RL_SWITCH - 1] == row(rl.SERVO_P_GAINS)).all()),
+        "walk_gains_at_end": bool((tr.kp[-1] == row(rl.WALK_P_GAINS)).all()),
+        "mode_switched": bool((tr.movement_mode[RL_SWITCH - 1] == 0).all()
+                              and (tr.movement_mode[-1] == 1).all()),
+        "root_z>0.1": bool((tr.root_pos[-1, :, 2] > 0.1).all())}
+
+
+def rl_phase(seed, device, card):
+    """``rollout.rl_rollout`` (main.py rl) at full actor width with random
+    weights from a seeded ``torch.Generator``: ``RL_BATCH`` scenarios (one
+    run gated, then ``RL_SPANS`` timed spans) and one robot (tick wall
+    times, each tick synchronized; launches and device-busy share a tick
+    from two profiled runs). Gates: tests/test_rl.py's criteria on every
+    scenario, no counted kernel launched, and the first
+    ``RL_F64_SCENARIOS`` held against the same actor in float64 on the CPU
+    over the servo phase and ``RL_F64_WALK_TICKS`` walk ticks. Returns
+    (counts by path, lines, passed)."""
+    import copy
+    import statistics
+    import torch
+    from go1_qp_mpc_controller_torch.models import policy, types
+
+    f32, f64 = torch.float32, torch.float64
+    model = types.default_robot_model(f32, device)
+    actor = policy.init_mlp(torch.Generator().manual_seed(seed),
+                            device=device)
+    dv = RL_DV * torch.randn((RL_BATCH, 3), dtype=f64,
+                             generator=torch.Generator().manual_seed(seed))
+    reset_counts()
+    _, tr = rl_run(rl_carry(model, RL_BATCH, dv), model, actor, RL_TICKS)
+    counts = read_counts()
+    checks = {f"batch_{k}": v for k, v in rl_criteria(tr).items()}
+    checks["no_counted_kernel"] = not any(
+        n for k, n in counts.items() if not isinstance(n, dict))
+
+    # the first scenarios against float64 (and float32) on the CPU
+    n_ref = RL_SWITCH + RL_F64_WALK_TICKS
+    head = {f: getattr(tr, f)[:n_ref, :RL_F64_SCENARIOS].cpu().double()
+            for f in ("obs", "target_q", "root_pos")}
+    del tr
+    cpu = {}
+    for dtype in (f64, f32):
+        m = types.default_robot_model(dtype, "cpu")
+        a = copy.deepcopy(actor).to("cpu", dtype)
+        _, t = rl_run(rl_carry(m, RL_F64_SCENARIOS, dv[:RL_F64_SCENARIOS]),
+                      m, a, n_ref)
+        cpu[dtype] = {f: getattr(t, f).double() for f in head}
+    gaps = {f: (float((head[f] - cpu[f64][f]).abs().max()),
+                float((cpu[f32][f] - cpu[f64][f]).abs().max()))
+            for f in head}
+    for f, (card_gap, cpu_gap) in gaps.items():
+        checks[f"{f}_f64"] = card_gap <= RL_F64_FACTOR * cpu_gap + RL_F64_FLOOR
+
+    span = lambda: rl_run(rl_carry(model, RL_BATCH, dv), model, actor,
+                          RL_TICKS)
+    walls = wall_spans(span, RL_SPANS)
+    n = RL_BATCH * RL_TICKS
+    rate = (f"{n / statistics.median(walls):.1f} scenario-ticks/s (spans "
+            f"{n / max(walls):.1f}-{n / min(walls):.1f})")
+
+    # one robot: each tick's wall time, the device synchronized at each
+    # tick's command (the host reads it first thing in a tick)
+    stamps = []
+
+    def stamp(_):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    one = rl_carry(model, 1, dv[:1])
+    _, tr1 = rl_run(one, model, actor, RL_TICKS, on_command=stamp)
+    # from the second tick on: the first replay follows the capture
+    walls1 = [b - a for a, b in zip(stamps[1:], stamps[2:])]
+    crit1 = rl_criteria(tr1)
+    checks.update({f"robot_{k}": v for k, v in crit1.items()})
+    (k0, b0, _), (k1, b1, _) = (
+        kernel_count(lambda t=t: rl_run(one, model, actor, t))
+        for t in RL_PROFILE_TICKS)
+    ticks = RL_PROFILE_TICKS[1] - RL_PROFILE_TICKS[0]
+    busy = (b1 - b0) / ticks
+    lines = [
+        f"rl (rl_rollout, actor 48-512-256-128-12, {RL_TICKS} ticks at "
+        f"{RL_DT} s, press at {RL_SWITCH}, vx {RL_VX}): batch {RL_BATCH} "
+        f"{rate}, median of {RL_SPANS} spans on {card}; launches "
+        f"{json.dumps(counts)}",
+        f"rl one robot: tick wall time p50 {_pct(walls1, 50):.4f} ms, p99 "
+        f"{_pct(walls1, 99):.4f} ms (synchronized each tick) on {card}; "
+        f"{(k1 - k0) / ticks:.1f} kernel launches a tick, device busy "
+        f"{busy:.4f} ms a tick ({100 * busy / _pct(walls1, 50):.1f}% of the "
+        f"p50 tick)",
+        f"rl first {RL_F64_SCENARIOS} scenarios against float64 on the CPU "
+        f"over {n_ref} ticks (card / CPU float32 max abs distance; gate "
+        f"card <= {RL_F64_FACTOR:g} x CPU float32 + {RL_F64_FLOOR:g}): "
+        + ", ".join(f"{f} {c:.3e} / {p:.3e}" for f, (c, p) in gaps.items()),
+        f"rl checks {json.dumps(checks)} "
+        f"{'PASS' if all(checks.values()) else 'FAIL'}"]
+    return {"rl": counts}, lines, all(checks.values())
+
+
+def rl_loop_s_mat(loop):
+    """The RL loop's live innovation matrix: its last estimate and the
+    feed's last frame through the loop's predict step."""
+    _, s = loop.bridge.read_sensors()
+    x, p = loop._est
+    frame = loop._frame(s, loop.command, False)
+    return loop._pre(x, p, frame, loop.rl_state).s_mat
+
+
+def rl_loop_phase(seed, device, card, time_scale):
+    """``RLControlLoop`` + ``SimFeeder`` (main.py rl-loop) on rl_gazebo at
+    ``time_scale`` for ``RL_LOOP_SECONDS`` of wall time, the A-button
+    press at half time. The launch counters are zeroed after the warm-up
+    and read after the loop. Gates (tests/test_rl_loop.py): servo gains
+    and 0.15 < z < 0.35 through the servo phase, walk gains and mode 1
+    after the press, targets inside the pose clip, a finite plant, one K4
+    launch an action tick, K4 on the live filter's matrix against its
+    plain version; at scale 0.5 more than 100 ticks with fewer than
+    ``RL_LOOP_OVERRUN_SHARE`` overruns. Returns (counts, lines, passed)."""
+    import numpy as np
+    import torch
+    from go1_qp_mpc_controller_torch.config import presets
+    from go1_qp_mpc_controller_torch.ctrl import rl
+    from go1_qp_mpc_controller_torch.models import policy
+    from go1_qp_mpc_controller_torch.runtime import feeder as feeder_lib
+    from go1_qp_mpc_controller_torch.runtime import rl_loop as rl_loop_lib
+
+    model, params, _ = presets.load_preset("gazebo_mpc", torch.float32,
+                                           device=device)
+    cfg = presets.load_rl_preset("rl_gazebo")
+    actor = policy.init_mlp(torch.Generator().manual_seed(seed),
+                            device=device)
+    loop = rl_loop_lib.RLControlLoop(
+        model, actor, action_period_s=cfg.action_period,
+        power_level=cfg.power_level, hardware=not cfg.use_sim_time,
+        contact_force_norm=cfg.contact_force_norm, time_scale=time_scale)
+    feeder = None
+    try:
+        loop.warmup()
+        feeder = feeder_lib.SimFeeder(loop.bridge, model, params, height=0.3,
+                                      period_s=cfg.deploy_period,
+                                      time_scale=time_scale, device=device)
+        reset_counts()
+        feeder.start(duration_s=RL_LOOP_SECONDS + 30.0)
+        t0 = time.perf_counter()
+        loop.start(duration_s=RL_LOOP_SECONDS)
+        servo_z = []
+        while time.perf_counter() - t0 < RL_LOOP_SECONDS / 2:
+            servo_z.append(float(feeder.sim_root_pos[2]))
+            time.sleep(0.05)
+        servo_mode = int(loop.rl_state.movement_mode[0])
+        _, servo_cmd = loop.bridge.read_command()
+        press_tick = loop.ticks
+        loop.toggle = True
+        loop._thread.join(timeout=RL_LOOP_SECONDS + 30.0)
+        ended = not loop._thread.is_alive()
+        feeder.stop()
+        counts = read_counts()
+        if loop.error is not None:
+            raise RuntimeError("the RL loop failed") from loop.error
+        if feeder.error is not None:
+            raise RuntimeError("the sensor feed failed") from feeder.error
+        # after the path's counts were read: K4 on the live filter
+        live_line, live_ok = k4_live_line(rl_loop_s_mat(loop))
+        _, cmd = loop.bridge.read_command()
+        root = feeder.sim_root_pos
+        mode = int(loop.rl_state.movement_mode[0])
+    finally:
+        if feeder is not None:
+            feeder.stop()
+        loop.close()
+    step = loop.metrics.summary("step_ms")
+    ticks, overruns = loop.ticks, loop.overruns
+    checks = {
+        "loop_ended": ended,
+        "servo_mode_and_gains": servo_mode == 0 and bool(np.array_equal(
+            servo_cmd["kp"], np.asarray(rl.SERVO_P_GAINS))),
+        "servo_z_in_(0.15,0.35)": bool(servo_z)
+                                  and 0.15 < min(servo_z)
+                                  and max(servo_z) < 0.35,
+        "walk_mode_and_gains": mode == 1 and bool(np.array_equal(
+            cmd["kp"], np.asarray(rl.WALK_P_GAINS))),
+        "targets_in_pose_clip": bool(
+            np.all(cmd["q"] >= np.asarray(rl.CLIP_POSE_LOWER) - 1e-6)
+            and np.all(cmd["q"] <= np.asarray(rl.CLIP_POSE_UPPER) + 1e-6)),
+        "finite_root": bool(np.isfinite(root).all()),
+        "k4_launches==ticks": counts["schulz_lanes"] == ticks,
+        "k4_live_frame": live_ok}
+    if time_scale == RL_LOOP_SCALES[0]:
+        checks["ticks>100"] = ticks > 100
+        checks[f"overruns<{RL_LOOP_OVERRUN_SHARE}*ticks"] = (
+            overruns < RL_LOOP_OVERRUN_SHARE * ticks)
+    pct = (f"p50 {step['p50']:.4f} ms, p99 {step['p99']:.4f} ms, max "
+           f"{step['max']:.4f} ms" if step else "none")
+    name = f"rl-loop scale {time_scale:g}"
+    lines = [
+        f"{name}: RLControlLoop + SimFeeder on rl_gazebo "
+        f"({cfg.action_period} s actions, {cfg.deploy_period} s feed) for "
+        f"{RL_LOOP_SECONDS} s wall on {card}: {ticks} action ticks (press "
+        f"at tick {press_tick}), {overruns} overruns, feeder ticks "
+        f"{feeder.ticks} ({feeder.overruns} overruns); step {pct}; servo "
+        f"z {min(servo_z, default=float('nan')):.4f}-"
+        f"{max(servo_z, default=float('nan')):.4f} m; plant root "
+        f"{np.round(root, 4).tolist()}; launches {json.dumps(counts)}",
+        f"{name}: {live_line}",
+        f"{name} checks {json.dumps(checks)} "
+        f"{'PASS' if all(checks.values()) else 'FAIL'}"]
+    return counts, lines, all(checks.values())
+
+
+def replay_phase(device, card):
+    """``envs/replay.py`` on the card. A one-robot gazebo_mpc trot
+    (``rollout.rollout``, batch 1, the EKF and polished cold solves,
+    ``REPLAY_TICKS`` ticks, walking at ``REPLAY_VX`` from tick
+    ``REPLAY_WALK_AT``) is recorded, its sensor stream read off
+    ``srb_sim.read_sensors``; ``replay_rollout`` replays the stream from
+    the same initial state (the command applied at the walk tick, as the
+    rollout's ``command_fn`` does), with the launch counters zeroed before
+    and read after. Then ``replay_joint_signal`` on a
+    ``sine_joint_signal``. Gates: the replayed torques and GRFs within
+    ``REPLAY_TOL`` of the recorded ones, K1, K2, K3 and K6 launched; the
+    realized joints finite and tracking the signal (correlation > 0.5,
+    tests/test_replay_checkpoint.py). Returns (counts, lines, passed)."""
+    import numpy as np
+    import torch
+    from go1_qp_mpc_controller_torch.config import presets
+    from go1_qp_mpc_controller_torch.ctrl import controller
+    from go1_qp_mpc_controller_torch.envs import replay, rollout, srb_sim
+    from go1_qp_mpc_controller_torch.ops import admm
+    from go1_qp_mpc_controller_torch.utils import graphs
+
+    model, params, static = presets.load_preset("gazebo_mpc", torch.float32,
+                                                device=device)
+    settings = admm.ADMMSettings(**POLISHED)
+    kw = dict(settings=settings, use_terrain_adapt=static.use_terrain_adapt)
+    carry = rollout.init_carry(model, params, 1, device=device)
+    ctrl0 = graphs.clone(carry.ctrl)
+
+    def walking(ctrl, walk):
+        vel = torch.zeros_like(ctrl.root_lin_vel_d)
+        vel[:, 0] = REPLAY_VX if walk else 0.0
+        return ctrl._replace(
+            movement_mode=torch.full_like(ctrl.movement_mode, int(walk)),
+            root_lin_vel_d=vel)
+
+    recorded = []
+    read_sensors = srb_sim.read_sensors
+
+    def recording(*args, **kwargs):
+        sensors = read_sensors(*args, **kwargs)
+        recorded.append(sensors)
+        return sensors
+
+    srb_sim.read_sensors = recording
+    try:
+        _, tr = rollout.rollout(
+            carry, model, params, REPLAY_TICKS, 0.002,
+            command_fn=lambda i, c: walking(c, i >= REPLAY_WALK_AT),
+            warm_settings=controller.WARM_SETTINGS, **kw)
+    finally:
+        srb_sim.read_sensors = read_sensors
+    log = replay.SensorLog(*[torch.stack(leaves)
+                             for leaves in zip(*recorded)])
+    part = lambda a, b: replay.SensorLog(*[leaf[a:b] for leaf in log])
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, stand = replay.replay_rollout(ctrl0, model, params,
+                                         part(0, REPLAY_WALK_AT), 0.002, **kw)
+    _, walk = replay.replay_rollout(walking(state, True), model, params,
+                                    part(REPLAY_WALK_AT, REPLAY_TICKS),
+                                    0.002, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    gap = {name: float((torch.cat([stand[name], walk[name]])
+                        - getattr(tr, name)).abs().max())
+           for name in ("joint_torques", "foot_forces_grf")}
+
+    q = replay.sine_joint_signal(SIGNAL_TICKS, 0.002, amplitude=0.1)
+    sig = replay.replay_joint_signal(q, model, 0.002)
+    realized = sig["joint_pos"][:, 0].cpu().double().numpy()
+    corr = float(np.corrcoef(realized[:, 1], q[:, 1])[0, 1])
+    checks = {
+        "replay_finite": bool(torch.isfinite(walk["joint_torques"]).all()),
+        **{f"{k}_within_{REPLAY_TOL:g}": v <= REPLAY_TOL
+           for k, v in gap.items()},
+        "k1_k2_k3_k6_launched": all(counts[k] > 0 for k in (
+            "kkt_schulz", "observe_ekf", "schulz_batch", "admm_iterations")),
+        "signal_finite": bool(np.isfinite(realized).all()),
+        "signal_tracked_corr>0.5": corr > 0.5}
+    lines = [
+        f"replay: gazebo_mpc trot recorded from rollout (batch 1, EKF on, "
+        f"{REPLAY_TICKS} ticks, walk from {REPLAY_WALK_AT}) and replayed by "
+        f"replay_rollout in {wall:.3f} s ({1e3 * wall / REPLAY_TICKS:.3f} ms "
+        f"a tick) on {card}; replayed minus recorded max abs: "
+        f"{json.dumps(gap)}; launches {json.dumps(counts)}",
+        f"replay: replay_joint_signal on a {SIGNAL_TICKS}-tick sine signal: "
+        f"joint 1 correlation {corr:.4f}",
+        f"replay checks {json.dumps(checks)} "
+        f"{'PASS' if all(checks.values()) else 'FAIL'}"]
+    return counts, lines, all(checks.values())
+
+
+def robust_command(walk_from, vx, yaw_rate=0.0, slope=None):
+    """tests/test_terrain_turning.py's command: stand, then trot at ``vx``
+    (and ``yaw_rate``) from ``walk_from``; on a ``slope`` (z = slope x)
+    the height target rides the terrain under the robot."""
+    import torch
+
+    def command(i, ctrl):
+        walk = i >= walk_from
+        vel = torch.zeros_like(ctrl.root_lin_vel_d)
+        ang = torch.zeros_like(ctrl.root_ang_vel_d)
+        if walk:
+            vel[:, 0], ang[:, 2] = vx, yaw_rate
+        out = ctrl._replace(
+            movement_mode=torch.full_like(ctrl.movement_mode, int(walk)),
+            root_lin_vel_d=vel, root_ang_vel_d=ang)
+        if slope is not None:
+            pos_d = ctrl.root_pos_d.clone()
+            pos_d[:, 2] = 0.3 + slope * ctrl.root_pos[:, 0]
+            out = out._replace(root_pos_d=pos_d)
+        return out
+    return command
+
+
+def robustness_phase(seed, device, card):
+    """tests/test_robustness.py and tests/test_terrain_turning.py at their
+    full lengths on the card, batch 1, float32, with their criteria: the
+    NaN foot-force spike (``SPIKE_SETTLE_TICKS`` standing, one corrupted
+    tick, ``SPIKE_RESUME_TICKS`` more), the uphill trot on a 10% grade
+    with terrain adaptation and the turning trot (``TERRAIN_TICKS`` each);
+    then a poisoned scenario (NaN gradient) among ``POISON_BATCH`` random
+    scenarios through the fused cold route (``admm.mpc_solve_cold``, K1 +
+    K6): flagged (primal_res >= 1e6), every x finite, every other
+    scenario's x, y and residuals bit-identical to the clean run. Returns
+    (counts by path, lines, passed)."""
+    import torch
+    from go1_qp_mpc_controller_torch.ctrl import controller
+    from go1_qp_mpc_controller_torch.envs import rollout, srb_sim
+    from go1_qp_mpc_controller_torch.models import types
+    from go1_qp_mpc_controller_torch.ops import admm
+
+    f32 = torch.float32
+    model = types.default_robot_model(f32, device)
+    params = types.default_ctrl_params(f32, device)
+    settings = admm.ADMMSettings(**POLISHED)
+    kw = dict(solver_type=controller.MPC, settings=settings, estimate=False)
+    dt = 0.002
+    nan = float("nan")
+    reset_counts()
+    t0 = time.perf_counter()
+    carry = rollout.init_carry(model, params, 1, device=device)
+    carry, _ = rollout.rollout(carry, model, params, SPIKE_SETTLE_TICKS, dt,
+                               use_terrain_adapt=False, **kw)
+    bad = carry._replace(stance_forces_z=torch.full_like(
+        carry.stance_forces_z, nan))
+    sensors = srb_sim.read_sensors(bad.sim, model, bad.ctrl.contacts,
+                                   bad.stance_forces_z, dt)
+    ctrl = controller.sensor_update(bad.ctrl, model, sensors, dt,
+                                    estimate=False)._replace(
+        root_pos=bad.sim.root_pos, root_lin_vel=bad.sim.root_lin_vel)
+    ctrl = controller.control_step(ctrl, model, params, dt,
+                                   solver_type=controller.MPC,
+                                   settings=settings, use_terrain_adapt=False)
+    spike_tau_finite = bool(torch.isfinite(ctrl.joint_torques).all())
+    carry = rollout.RolloutCarry(ctrl=ctrl, sim=bad.sim,
+                                 stance_forces_z=torch.full_like(
+                                     carry.stance_forces_z, 36.75))
+    _, tr = rollout.rollout(carry, model, params, SPIKE_RESUME_TICKS, dt,
+                            use_terrain_adapt=False, **kw)
+    z = tr.root_pos[:, 0, 2]
+    spike_z = float(z[-1])
+
+    slope = 0.1
+    ground = torch.tensor([0.0, slope, 0.0], dtype=f32, device=device)
+    carry = rollout.init_carry(model, params, 1, device=device,
+                               ground_coef=ground)
+    _, up = rollout.rollout(carry, model, params, TERRAIN_TICKS, dt,
+                            command_fn=robust_command(100, 0.25, slope=slope),
+                            use_terrain_adapt=True, ground_coef=ground, **kw)
+    pos = up.root_pos[:, 0]
+    tp = float(up.terrain_pitch[-200:, 0].abs().mean())
+    roll = float(up.root_euler[200:, 0, 0].abs().max())
+
+    carry = rollout.init_carry(model, params, 1, device=device)
+    _, turn = rollout.rollout(carry, model, params, TERRAIN_TICKS, dt,
+                              command_fn=robust_command(100, 0.2, 0.4),
+                              use_terrain_adapt=False, **kw)
+    tpos = turn.root_pos[:, 0]
+    yaw = float(turn.root_euler[-1, 0, 2])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+
+    scn = random_scenarios(POISON_BATCH, seed, device)
+    lazy = condense(scn, scn.x0, dense=False)
+    fused = admm.ADMMSettings(**SWEEP_FUSED)
+    solve = lambda qp: admm.mpc_solve_cold(
+        qp, fused, mu=scn.mu, contacts=scn.contacts, foot_pos=scn.foot_pos)[0]
+    reset_counts()
+    clean = solve(lazy)
+    grad = lazy.gradient.clone()
+    grad[POISONED] = nan
+    dirty = solve(lazy._replace(gradient=grad))
+    poison_counts = read_counts()
+    keep = torch.arange(POISON_BATCH, device=device) != POISONED
+    same = all(torch.equal(getattr(clean, f)[keep], getattr(dirty, f)[keep])
+               for f in ("x", "y", "primal_res", "dual_res"))
+    flag = float(dirty.primal_res[POISONED])
+    checks = {
+        "spike_torques_finite": spike_tau_finite,
+        "spike_z_finite": bool(torch.isfinite(z).all()),
+        "spike_|z_end-0.3|<0.05": abs(spike_z - 0.3) < 0.05,
+        "uphill_finite": bool(torch.isfinite(pos).all()),
+        "uphill_x_end>0.15": float(pos[-1, 0]) > 0.15,
+        "uphill_climbed": float(pos[-1, 2])
+                          > 0.3 + slope * float(pos[-1, 0]) - 0.06,
+        "uphill_pitch_in_(0.03,0.2)": 0.03 < tp < 0.2,
+        "uphill_roll<0.1": roll < 0.1,
+        "turn_finite": bool(torch.isfinite(turn.root_euler).all()),
+        "turn_yaw_end>0.5": yaw > 0.5,
+        "turn_y_end>0.02": float(tpos[-1, 1]) > 0.02,
+        "turn_height_within_0.04": bool(
+            ((tpos[200:, 2] - 0.3).abs() < 0.04).all()),
+        "poisoned_flagged": flag >= 1e6,
+        "poisoned_batch_x_finite": bool(torch.isfinite(dirty.x).all()),
+        "neighbours_bit_identical": same,
+        "poison_route_k1_k6": poison_counts["kkt_schulz"] > 0
+                              and poison_counts["admm_iterations"] > 0}
+    lines = [
+        f"robustness: NaN foot-force spike after {SPIKE_SETTLE_TICKS} ticks, "
+        f"{SPIKE_RESUME_TICKS} clean ticks after: torques finite "
+        f"{spike_tau_finite}, final z {spike_z:.4f} m; uphill trot (z = "
+        f"{slope} x, {TERRAIN_TICKS} ticks): final x {float(pos[-1, 0]):.4f},"
+        f" z {float(pos[-1, 2]):.4f} m, mean |terrain pitch| over the last "
+        f"200 ticks {tp:.4f} rad, max |roll| from tick 200 {roll:.4f}; "
+        f"turning trot: final yaw {yaw:.4f} rad, y {float(tpos[-1, 1]):.4f} "
+        f"m; batch 1 float32, {wall:.3f} s on {card}; launches "
+        f"{json.dumps(counts)}",
+        f"robustness: poisoned scenario {POISONED} of {POISON_BATCH} "
+        f"(mpc_solve_cold, K1 + K6): primal_res {flag:g}, the other "
+        f"scenarios bit-identical to the clean run {same}; launches "
+        f"{json.dumps(poison_counts)}",
+        f"robustness checks {json.dumps(checks)} "
+        f"{'PASS' if all(checks.values()) else 'FAIL'}"]
+    return ({"robustness": counts, "poisoned_batch": poison_counts}, lines,
+            all(checks.values()))
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -2353,6 +2907,22 @@ def main(argv=None):
                                                          device, card))]
     paths += [(f"runtime {preset}", lambda p=preset: runtime(p))
               for preset in RUNTIME]
+
+    def rl_loop(scale):
+        counts, lines, passed = rl_loop_phase(args.seed + 10, device, card,
+                                              scale)
+        return {f"rl_loop_{scale:g}": counts}, lines, passed
+
+    def replay():
+        counts, lines, passed = replay_phase(device, card)
+        return {"replay": counts}, lines, passed
+
+    paths += [("rl", lambda: rl_phase(args.seed + 10, device, card))]
+    paths += [(f"rl-loop {scale:g}", lambda s=scale: rl_loop(s))
+              for scale in RL_LOOP_SCALES]
+    paths += [("replay", replay),
+              ("robustness", lambda: robustness_phase(args.seed + 11, device,
+                                                      card))]
     for name, path in paths:
         try:
             counts, lines, passed = path()

@@ -8,6 +8,8 @@ the same field names: a ``CtrlState``, or the solver's ``CondensedQP``,
 ``WarmState`` and ``BalanceQP`` (batched: a leading batch axis on every
 leaf). ``to_numpy`` goes the other way, to nested dicts of
 arrays, so that another implementation can compute on the same state.
+``actor_from_numpy`` carries the JAX package's actor weights
+(``models/policy.MLPParams``) across into an ``ActorMLP``.
 """
 
 import numpy as np
@@ -52,3 +54,22 @@ def to_numpy(obj):
     if hasattr(obj, "_fields"):
         return {name: to_numpy(getattr(obj, name)) for name in obj._fields}
     return obj.detach().cpu().numpy()
+
+
+def actor_from_numpy(params, device, dtype=torch.float32):
+    """An ``models/policy.ActorMLP`` from the JAX package's ``MLPParams``
+    as arrays (``weights``: (in, out) matrices, ``biases``: (out,)
+    vectors), or a mapping with those two keys. ``nn.Linear`` stores
+    (out, in), so each weight is transposed."""
+    from go1_qp_mpc_controller_torch.models import policy
+
+    params = _as_mapping(params)
+    ws = [np.asarray(w) for w in params["weights"]]
+    bs = [np.asarray(b) for b in params["biases"]]
+    dims = tuple(w.shape[0] for w in ws) + (ws[-1].shape[1],)
+    actor = policy.ActorMLP(dims, dtype, device)
+    with torch.no_grad():
+        for layer, w, b in zip(actor.layers, ws, bs):
+            layer.weight.copy_(torch.tensor(w.T))
+            layer.bias.copy_(torch.tensor(b))
+    return actor.requires_grad_(False)

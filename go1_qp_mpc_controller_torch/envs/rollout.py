@@ -12,16 +12,24 @@ Both rollouts run B robots at once:
   ``rollout`` (``controller.control_step``): MPC or balance-QP stance
   control, each scenario routed on its own. At batch 1 it is the
   single-robot 500 Hz loop.
+
+:func:`rl_rollout` is the RL stack's closed loop (``init_rl_carry``):
+policy or servo stand -> position commands -> the plant's motor PD loop.
+It launches none of the counted kernels, so on the card each of its ticks
+is one CUDA graph replay (``utils/graphs.CapturedStep``).
 """
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from go1_qp_mpc_controller_torch.ctrl import controller
+from go1_qp_mpc_controller_torch.ctrl import rl as rl_lib
 from go1_qp_mpc_controller_torch.envs import srb_sim
 from go1_qp_mpc_controller_torch.models import types
 from go1_qp_mpc_controller_torch.ops import admm, ekf
+from go1_qp_mpc_controller_torch.utils import graphs, rotations
 from go1_qp_mpc_controller_torch.utils.device import resolve_device
 
 
@@ -180,3 +188,112 @@ def rollout_batched(carry, model, params, num_steps, dt,
                     use_terrain_adapt=use_terrain_adapt,
                     warm_settings=warm_settings, robust=robust,
                     compact_k=compact_k, stats=stats))
+
+
+class RLRolloutCarry(NamedTuple):
+    rl: rl_lib.RLControllerState
+    sim: srb_sim.SimState
+    stance_forces_z: torch.Tensor  # (B, 4)
+
+
+class RLRolloutTrace(NamedTuple):
+    """Per-tick records, each (T, B, ...)."""
+    obs: torch.Tensor            # (T, B, 48)
+    target_q: torch.Tensor       # (T, B, 12) commanded joint positions
+    kp: torch.Tensor             # (T, B, 12) commanded gains (by mode)
+    root_pos: torch.Tensor       # (T, B, 3)
+    movement_mode: torch.Tensor  # (T, B)
+
+
+def init_rl_carry(model, batch, height=0.3, dtype=torch.float32,
+                  device=None):
+    """Standing start for the RL stack (stand/servo mode), ``batch``
+    scenarios on ``device`` (None: the CUDA card; ``model`` must live
+    there in ``dtype``)."""
+    device = resolve_device(device)
+    if model.mass.device != device or model.mass.dtype != dtype:
+        raise ValueError(f"the model lives on {model.mass.device} / "
+                         f"{model.mass.dtype}, the carry on {device} / "
+                         f"{dtype}")
+    sim = srb_sim.init_sim_state(model, batch, height)
+    rl = rl_lib.init_rl_state(batch, sim.prev_joint_pos)
+    weight = model.mass * 9.8 / 4.0
+    return RLRolloutCarry(rl=rl, sim=sim,
+                          stance_forces_z=weight.expand(batch, 4).clone())
+
+
+def rl_rollout(carry, model, actor, num_steps, dt, command_fn=None,
+               toggle_fn=None):
+    """Closed-loop RL rollout: policy -> position PD plant.
+
+    The mirror of the reference's RL process
+    (go1_rl_ctrl_cpp/src/MainGazebo.cpp:22-144): each tick observes the
+    plant, runs SwitchController + Go1RLController::advance /
+    advance_servo, and steps the plant through the motor PD loop the
+    position commands drive (Go1RLController.cpp:149-166). The plant keeps
+    the all-stance schedule (the RL stack plans no gait; physics owns
+    contact).
+
+    Args:
+      carry: RLRolloutCarry from :func:`init_rl_carry`.
+      actor: ``models/policy.ActorMLP`` on the carry's device.
+      num_steps: ticks to run.
+      dt: RL action period, a float (reference: 4 ms Gazebo / 2.5 ms
+        hardware, config/parameters.yaml:9-11).
+      command_fn: optional step_idx -> (cmd_vx, cmd_vy, cmd_yaw_rate), a
+        (3,) or (B, 3) array-like, evaluated on the host each tick.
+      toggle_fn: optional step_idx -> A-button press
+        (SwitchController.hpp:11-69), a bool or (B,) bools, evaluated on
+        the host each tick.
+
+    Returns:
+      (carry, RLRolloutTrace) with trace leaves (T, B, ...).
+    """
+    if num_steps < 1:
+        raise ValueError("a rollout needs num_steps >= 1")
+    dt = float(dt)
+    sim0 = carry.sim
+    batch, dtype, device = (sim0.root_pos.shape[0], sim0.root_pos.dtype,
+                            sim0.root_pos.device)
+    contacts = torch.ones((batch, 4), dtype=torch.bool, device=device)
+    stand_targets = sim0.foot_pos_world - sim0.root_pos[:, None]
+
+    def tick(c, inputs):
+        """One tick; ``inputs`` (B, 4) holds the command and the press."""
+        sensors = srb_sim.read_sensors(c.sim, model, contacts,
+                                       c.stance_forces_z, dt)
+        rot = rotations.quat_to_rot_mat(sensors.quat_wxyz)
+        euler = rotations.quat_to_euler(sensors.quat_wxyz)
+        rl = rl_lib.switch_mode(c.rl, inputs[:, 3] != 0.0)
+        # plant ground-truth velocity: the estimation thread's role
+        # (Go1Observation.hpp:392-424); runtime/rl_loop.py runs the EKF
+        rl, cmd, obs = rl_lib.rl_control_step(
+            rl, actor, rot, rotations.rot_z(euler[:, 2]),
+            c.sim.root_lin_vel, sensors.imu_ang_vel, inputs[:, :3],
+            sensors.joint_pos, sensors.joint_vel)
+        sim, fz = srb_sim.step_pd(c.sim, model, cmd.q, cmd.kp, cmd.kd,
+                                  cmd.tau, contacts, stand_targets, dt)
+        trace = RLRolloutTrace(obs=obs, target_q=cmd.q, kp=cmd.kp,
+                               root_pos=sim.root_pos,
+                               movement_mode=rl.movement_mode)
+        return RLRolloutCarry(rl=rl, sim=sim, stance_forces_z=fz), trace
+
+    def host_inputs(i):
+        row = np.zeros((batch, 4))
+        if command_fn is not None:
+            row[:, :3] = np.asarray(command_fn(i), np.float64)
+        if toggle_fn is not None:
+            row[:, 3] = np.asarray(toggle_fn(i), bool)
+        return torch.as_tensor(row, dtype=dtype).to(device)
+
+    step = graphs.CapturedStep(tick, carry, torch.zeros(
+        (batch, 4), dtype=dtype, device=device))
+    records = []
+    for i in range(num_steps):
+        # the outputs are the graph's buffers, which the next replay
+        # overwrites: the carry goes back in as the next inputs (copied
+        # before the replay), the trace is copied out
+        carry, trace = step(carry, host_inputs(i))
+        records.append(graphs.clone(trace))
+    trace = RLRolloutTrace(*[torch.stack(leaves) for leaves in zip(*records)])
+    return graphs.clone(carry), trace

@@ -17,10 +17,17 @@ Modes:
   loop    - the real-time host loop against the C++ bridge, fed by the
             simulated 1 kHz sensor feed (or an external feed with
             --no-feeder).
+  rl      - the RL stack's closed loop (the reference's go1_rl_ctrl_cpp
+            MainGazebo process): servo stand, an A-button press to the
+            walk policy, position commands to the PD plant.
+  rl-loop - the RL host loop over the bridge (estimator + policy at the
+            action cadence) against the simulated sensor feed.
+
+  python -m go1_qp_mpc_controller_torch.main rl --steps 800
+  python -m go1_qp_mpc_controller_torch.main rl-loop --duration 5
 
 All run on the CUDA card unless ``--device cpu`` is given. Not ported yet:
-the ``rl`` and ``rl-loop`` modes and a sweep across devices
-(``--mpc-parallel`` > 1), ROADMAP queue 1.
+a sweep across devices (``--mpc-parallel`` > 1), ROADMAP queue 1.
 """
 
 import argparse
@@ -185,6 +192,94 @@ def cmd_loop(args, model, params, static, device):
         cl.close()
 
 
+def _actor(args, seed, device):
+    """The TorchScript actor of ``--weights``, else random weights drawn
+    from a ``torch.Generator`` seeded with ``seed``."""
+    import torch
+
+    from go1_qp_mpc_controller_torch.models import policy as policy_lib
+
+    if args.weights:
+        return policy_lib.load_torchscript_actor(args.weights, device=device)
+    # no weights ship with the reference either (resource/*.pt are
+    # binary artifacts); random weights still exercise the full loop
+    return policy_lib.init_mlp(torch.Generator().manual_seed(seed),
+                               device=device)
+
+
+def cmd_rl(args, model, params, static, device):
+    """Closed-loop RL rollout on the PD joint plant (the reference's
+    go1_rl_ctrl_cpp MainGazebo process, policy -> position commands)."""
+    import numpy as np
+    import torch
+
+    from go1_qp_mpc_controller_torch.envs import rollout
+
+    actor = _actor(args, args.seed, device)
+    carry = rollout.init_rl_carry(model, 1, height=args.height,
+                                  dtype=torch.float32, device=device)
+    switch_at = args.switch_step
+    walk_cmd = [args.vx, args.vy, 0.0]
+    _, trace = rollout.rl_rollout(
+        carry, model, actor, args.steps, args.dt,
+        command_fn=lambda i: walk_cmd if i >= switch_at else [0.0] * 3,
+        toggle_fn=lambda i: i == switch_at)
+    obs = trace.obs[:, 0].cpu().numpy()
+    q = trace.target_q[:, 0].cpu().numpy()
+    print(json.dumps({
+        "steps": args.steps,
+        "finite": bool(np.isfinite(obs).all() and np.isfinite(q).all()),
+        "obs_max_abs": round(float(np.abs(obs).max()), 3),
+        "target_q_range": [round(float(q.min()), 3),
+                           round(float(q.max()), 3)],
+        "mode_tail": int(trace.movement_mode[-1, 0]),
+        "final_root_pos": [round(float(v), 4)
+                           for v in trace.root_pos[-1, 0].cpu().numpy()],
+    }))
+
+
+def cmd_rl_loop(args, model, params, static, device):
+    """RL host loop over the RT bridge against the sim feeder: the
+    hardware-mirror RL process (Go1RLHardwareController + estimation
+    thread + servo stand)."""
+    from go1_qp_mpc_controller_torch.config import presets
+    from go1_qp_mpc_controller_torch.runtime import feeder as feeder_lib
+    from go1_qp_mpc_controller_torch.runtime import rl_loop as rl_loop_lib
+
+    rl_cfg = presets.load_rl_preset(args.rl_preset)
+    loop = rl_loop_lib.RLControlLoop(
+        model, _actor(args, 0, device), action_period_s=rl_cfg.action_period,
+        power_level=rl_cfg.power_level, hardware=not rl_cfg.use_sim_time,
+        contact_force_norm=rl_cfg.contact_force_norm,
+        time_scale=args.time_scale, servo_only=args.servo_only)
+    feeder = None
+    try:
+        loop.warmup()
+        feeder = feeder_lib.SimFeeder(loop.bridge, model, params,
+                                      height=args.height,
+                                      period_s=rl_cfg.deploy_period,
+                                      time_scale=args.time_scale,
+                                      device=device)
+        feeder.start(duration_s=args.duration + 5.0)
+        n = loop.run(duration_s=args.duration)
+        feeder.stop()
+        if feeder.error is not None:
+            raise RuntimeError("the sensor feed failed") from feeder.error
+        _, cmd = loop.bridge.read_command()
+        print(json.dumps({
+            "ticks": n,
+            "feeder_ticks": feeder.ticks,
+            "mode": int(loop.rl_state.movement_mode[0]),
+            "root_pos": [round(float(v), 4)
+                         for v in feeder.sim_root_pos],
+            "kp_head": [round(float(v), 1) for v in cmd["kp"][:3]],
+        }))
+    finally:
+        if feeder is not None:
+            feeder.stop()
+        loop.close()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--preset", default="gazebo_mpc")
@@ -239,6 +334,36 @@ def main(argv=None):
     p.add_argument("--single", action="store_true",
                    help="fused single-cadence loop")
     p.set_defaults(fn=cmd_loop)
+
+    p = sub.add_parser("rl-loop")
+    p.add_argument("--rl-preset", default="rl_gazebo",
+                   help="rl_gazebo | rl_hardware (RL-stack config)")
+    p.add_argument("--duration", type=float, default=5.0)
+    p.add_argument("--height", type=float, default=0.3)
+    p.add_argument("--time-scale", type=float, default=0.25)
+    p.add_argument("--servo-only", action="store_true",
+                   help="standalone servo stand process "
+                        "(servo_stand_policy parity)")
+    p.add_argument("--weights", default=None,
+                   help="TorchScript actor .pt (random weights from a "
+                        "torch.Generator seeded with 0 if unset)")
+    p.set_defaults(fn=cmd_rl_loop)
+
+    p = sub.add_parser("rl")
+    p.add_argument("--steps", type=int, default=800)
+    p.add_argument("--dt", type=float, default=0.004)
+    p.add_argument("--vx", type=float, default=0.3)
+    p.add_argument("--vy", type=float, default=0.0)
+    p.add_argument("--height", type=float, default=0.3)
+    p.add_argument("--switch-step", type=int, default=400,
+                   help="A-button press: servo-stand -> walk policy")
+    p.add_argument("--weights", default=None,
+                   help="TorchScript actor .pt (random weights if unset)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="seed of the random actor's torch.Generator; its "
+                        "draws differ from the JAX package's jax.random "
+                        "draws for the same seed")
+    p.set_defaults(fn=cmd_rl)
 
     args = parser.parse_args(argv)
 

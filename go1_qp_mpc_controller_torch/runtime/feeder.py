@@ -9,10 +9,11 @@ through ``RtBridge.push_sensors``, so ``main.py loop`` runs a closed loop
 end to end (sensors in, torques out) without a robot.
 
 The plant runs on ``device``, the CUDA card unless the caller asks for the
-CPU, on a CUDA stream of the feeder thread's own; on the card its torque
-tick is one CUDA graph replay (``utils/graphs.py``). (The JAX feeder pins
-the host CPU because a 1 kHz loop could not ride its remote accelerator's
-dispatch; a local card has no such limit.)
+CPU, on a CUDA stream of the feeder thread's own; on the card each plant
+tick, in torque or in position mode, is one CUDA graph replay
+(``utils/graphs.py``). (The JAX feeder pins the host CPU because a 1 kHz
+loop could not ride its remote accelerator's dispatch; a local card has no
+such limit.)
 """
 
 import threading
@@ -82,11 +83,14 @@ class SimFeeder:
                                    - carry.sim.root_pos[:, None])
             self._contacts = torch.ones((1, 4), dtype=torch.bool,
                                         device=self.device)
-            # the torque-mode tick, captured as a CUDA graph on the card
-            # (here, before any other thread runs)
+            # the torque-mode and the position-mode tick, captured as CUDA
+            # graphs on the card (here, before any other thread runs)
             self._tick = graphs.CapturedStep(
                 self._step_and_read, self._sim, self._forces_z,
                 torch.zeros((1, 12), dtype=f32, device=self.device))
+            self._pd_tick = graphs.CapturedStep(
+                self._pd_step_and_read, self._sim, self._forces_z,
+                torch.zeros((1, 48), dtype=f32, device=self.device))
             self._host = self._read()
         self._root_host = self._host[38:41].copy()
 
@@ -109,6 +113,15 @@ class SimFeeder:
                                      self._stand_targets, self.period)
         return sim, forces_z, self._frame(sim, forces_z)
 
+    def _pd_step_and_read(self, sim, forces_z, cmd):
+        """One position-mode plant step under ``cmd`` = (tau, q, kp, kd)
+        as one (1, 48) block, and the new state's frame."""
+        tau, q, kp, kd = cmd.split(12, dim=-1)
+        sim, forces_z = srb_sim.step_pd(sim, self.model, q, kp, kd, tau,
+                                        self._contacts, self._stand_targets,
+                                        self.period)
+        return sim, forces_z, self._frame(sim, forces_z)
+
     def _read(self):
         """The current frame as a float64 host array."""
         return self._frame(self._sim, self._forces_z)[0].to(
@@ -122,13 +135,12 @@ class SimFeeder:
         dev = lambda a: torch.as_tensor(a[None], dtype=torch.float32).to(
             self.device)
         if np.any(cmd["kp"] != 0.0):
-            self._sim, self._forces_z = srb_sim.step_pd(
-                self._sim, self.model, dev(cmd["q"]), dev(cmd["kp"]),
-                dev(cmd["kd"]), dev(cmd["tau"]), self._contacts,
-                self._stand_targets, self.period)
-            return self._read()
-        self._sim, self._forces_z, frame = self._tick(
-            self._sim, self._forces_z, dev(cmd["tau"]))
+            self._sim, self._forces_z, frame = self._pd_tick(
+                self._sim, self._forces_z, dev(np.concatenate(
+                    [cmd["tau"], cmd["q"], cmd["kp"], cmd["kd"]])))
+        else:
+            self._sim, self._forces_z, frame = self._tick(
+                self._sim, self._forces_z, dev(cmd["tau"]))
         return frame[0].to("cpu", torch.float64).numpy()
 
     def run(self, num_ticks=None, duration_s=None):

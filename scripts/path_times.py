@@ -10,8 +10,11 @@ routes, launches, health): the batched paths (main, polished, chain), one
 robot (``single_robot_phase``: the trot and the balance-QP stand at batch
 1), the balance-QP stand alone with a profile of its device time (qp) and
 the real-time runtime (``runtime_phase`` on each of the checkout's
-``RUNTIME`` presets), the scenario sweep (``sweep_phase``) and the long
-horizon (``long_horizon_phase``). The host sets the pace of these paths
+``RUNTIME`` presets), the scenario sweep (``sweep_phase``), the long
+horizon (``long_horizon_phase``), the RL rollout (``rl_phase``), the RL
+host loop (``rl_loop_phase`` at each of ``RL_LOOP_SCALES``), the log
+replay (``replay_phase``) and robustness / terrain
+(``robustness_phase``). The host sets the pace of these paths
 and its speed varies from run to run, so compare two commits on one card
 by running this in one call for parent, change, change, parent (each run
 a fresh process):
@@ -25,7 +28,7 @@ import os
 import sys
 
 PATHS = ("main", "polished", "chain", "robot", "qp", "runtime", "sweep",
-         "long")
+         "long", "rl", "rl_loop", "replay", "robust")
 
 
 def qp_stand(cs, device):
@@ -99,6 +102,13 @@ def main(argv=None):
                             cs.runtime_phase(preset, device, card)[1]],
         "sweep": lambda: cs.sweep_phase(args.seed + 8, device, card)[1],
         "long": lambda: cs.long_horizon_phase(args.seed + 9, device,
+                                              card)[1],
+        "rl": lambda: cs.rl_phase(args.seed + 10, device, card)[1],
+        "rl_loop": lambda: [line for scale in cs.RL_LOOP_SCALES for line in
+                            cs.rl_loop_phase(args.seed + 10, device, card,
+                                             scale)[1]],
+        "replay": lambda: cs.replay_phase(device, card)[1],
+        "robust": lambda: cs.robustness_phase(args.seed + 11, device,
                                               card)[1],
     }
     print(f"root {args.root}: card {card}", flush=True)

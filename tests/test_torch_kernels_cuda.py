@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card: K1 to K6 against their plain
 versions, the wrappers' input checks, and a few ticks of the paths
-through them (the estimator thread's K4 launch a frame among them).
+through them (the estimator thread's K4 launch a frame and the RL loop's
+a tick among them), and ``chip_smoke.py``'s RL and replay phases at a
+reduced size.
 
 These tests need an NVIDIA GPU and ``nvcc`` (the kernels build at first
 use); without a card they skip. This file imports neither JAX nor the JAX
@@ -1016,3 +1018,74 @@ def test_stagewise_routed_batch_captures_each_bucket_once(card, monkeypatch):
     for a, b in zip(more, eager):
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=0, atol=1e-3)
+
+
+def test_rl_paths_on_the_card(card, monkeypatch):
+    """``chip_smoke.rl_phase`` at batch 64 and one span: the RL rollout's
+    captured ticks launch no counted kernel, meet tests/test_rl.py's
+    criteria on every scenario and hold the CPU float64 run's first
+    scenarios (the phase's gates)."""
+    monkeypatch.setattr(chip_smoke, "RL_BATCH", 64)
+    monkeypatch.setattr(chip_smoke, "RL_SPANS", 1)
+    _, lines, passed = chip_smoke.rl_phase(0, card, "card")
+    assert passed, lines
+
+
+def test_rl_loop_halves_match_eager_and_launch_k4_each_tick(card):
+    """The RL loop on the card: its two captured halves equal the same
+    functions run eagerly on the same inputs (within 1e-6 x max(1,
+    max|eager|)), and each action tick launches K4 once."""
+    import numpy as np
+    from torch.utils import _pytree as pytree
+
+    from go1_qp_mpc_controller_torch.models import policy
+    from go1_qp_mpc_controller_torch.ops import schulz_lanes
+    from go1_qp_mpc_controller_torch.runtime import rl_loop
+
+    def close(got, want):
+        for g, w in zip(pytree.tree_leaves(got), pytree.tree_leaves(want)):
+            w = w.double()
+            tol = 1e-6 * max(1.0, float(w.abs().max()))
+            assert float((g.double() - w).abs().max()) <= tol
+
+    model = types.default_robot_model(F32, card)
+    actor = policy.init_mlp(torch.Generator().manual_seed(0), device=card)
+    loop = rl_loop.RLControlLoop(model, actor, hardware=False)
+    try:
+        loop.warmup()
+        joints = np.array([0.0, 0.8, -1.6] * 4)
+        sensors = {"quat": [0.999, 0.02, -0.01, 0.0], "acc": [0.1, -0.2, 9.7],
+                   "gyro": [0.05, 0.0, -0.1], "joint_pos": joints,
+                   "joint_vel": np.zeros(12),
+                   "foot_force": [40.0, 60.0, 55.0, 45.0]}
+        x, p = loop._init_estimate(sensors)
+        frame = loop._frame(sensors, [0.3, 0.0, 0.0], True)
+        pred = loop._pre_fn(x, p, frame, loop.rl_state)
+        close(loop._pre(x, p, frame, loop.rl_state), pred)
+        s_inv = ekf.innovation_inverse(pred.s_mat, "plain")
+        close(loop._post(pred, s_inv, loop.rl_state, frame),
+              loop._post_fn(pred, s_inv, loop.rl_state, frame))
+        schulz_lanes.reset_launches()
+        for k in range(5):
+            loop.bridge.push_sensors(*[np.asarray(sensors[key]) for key in
+                                       ("quat", "acc", "gyro", "joint_pos",
+                                        "joint_vel", "foot_force")])
+            loop.toggle = k == 2
+            assert loop.run(num_ticks=k + 1) == k + 1
+        torch.cuda.synchronize()
+        assert schulz_lanes.launches == 5
+        assert int(loop.rl_state.movement_mode[0]) == 1
+        _, cmd = loop.bridge.read_command()
+        assert np.isfinite(cmd["q"]).all()
+    finally:
+        loop.close()
+
+
+def test_replay_reproduces_the_recorded_trot(card, monkeypatch):
+    """``chip_smoke.replay_phase`` on a 150-tick recording (the walk from
+    tick 100): the replayed torques and GRFs are the recorded rollout's
+    within ``chip_smoke.REPLAY_TOL``, K1, K2, K3 and K6 launched, and the
+    joint-signal replay tracks its signal."""
+    monkeypatch.setattr(chip_smoke, "REPLAY_TICKS", 150)
+    _, lines, passed = chip_smoke.replay_phase(card, "card")
+    assert passed, lines
