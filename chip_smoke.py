@@ -27,6 +27,11 @@ just after it:
 - the scenario sweep (``parallel/sweep.py``): ``main.py sweep``'s program
   at batch 4096 (the dense polished route: K3, K6), then the fused cold
   route (K1, K6) through ``run_chunked`` over 32 chunks of 4096;
+- the multi-device layer at world size 1 (``main.py sweep``'s mesh): a
+  world-1 NCCL group, the mesh sweep on both routes (K1, K3, K6), the
+  sharded controller step, the horizon-sharded LQR solve, and ``main.py
+  rollout --trace`` (K1, K2, K3, K6), each held against its one-card
+  counterpart;
 - the long horizon: the stagewise solver (``ops/stagewise.py``, K3 at
   n = 12 once a stage a Riccati pass) at batch 1024 for H = 40 and 120,
   cold and warm; the JAX package's closed-loop protocol at H = 40; the
@@ -54,7 +59,9 @@ printed by route for each path. Kernel, plain version and library call
 are timed in turn, as medians of interleaved spans.
 
 Each phase prints its lines; the last line is ``{"ok": true, "device":
-{...}}`` and is printed only when every phase passed.
+{...}}`` and is printed only when every phase passed. A phase that fails
+also writes its name and its failing lines to standard error, and the run
+ends there with the list of failed phases.
 
     python3 chip_smoke.py            # needs one CUDA card; exits non-zero
                                      # when there is none or a phase fails
@@ -66,16 +73,10 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
-# Published H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 outside the
-# tensor cores, dense TF32 on them, and HBM3 bandwidth. Every kernel here
-# runs FP32 FMA, but for the middle Schulz steps of K1, K3 at n = 120 and
-# K5, which run three TF32 passes on the tensor cores.
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BYTES = 3.35e12
 N = 120           # MPC decision variables
 F32 = 4           # bytes
 # the main path's size: the JAX bench's batch; ~130 ticks of trot onset and
@@ -132,6 +133,17 @@ PHYSICAL = dict(seg_iters=75, segments=5)
 # version's + F64_SLACK N on the same scenarios
 F64_FACTOR = 2.0
 F64_SLACK = 0.05
+# the mesh at world size 1: ticks of the sharded controller step, spans
+# of each mesh sweep, the mpc-axis member counts summed serially (they
+# divide the horizon), the horizon-sharded LQR's horizon and its gate
+# against the port's _lqr_solve (float32: the scan composes the stages in
+# another order), the rollout --trace steps
+MESH_CTRL_TICKS = 3
+MESH_SPANS = 3
+MESH_PARTIAL_N = (2, 5)
+LQR_H = 40
+LQR_TOL = 1e-4
+MESH_TRACE_STEPS = 30
 # the long horizon: bench.py:667-697's stagewise batch, settings and warm
 # ticks at H = 40 and 120; JAX's closed-loop protocol (tests/
 # test_stagewise.py:203-270, 400 ticks); the rollout(horizon=40) entry
@@ -194,6 +206,62 @@ K4_BATCHES = (33, 1)
 def _fail(msg):
     print(f"FAIL {msg}", flush=True)
     return 1
+
+
+def _report(name, lines, passed, failed):
+    """Print a phase's lines; when it failed, also write its name and its
+    failing lines to standard error and add it to ``failed``."""
+    for line in lines:
+        print(line, flush=True)
+    if not passed:
+        failed.append(name)
+        print(f"FAIL phase {name}:", file=sys.stderr, flush=True)
+        for line in lines:
+            if "FAIL" in line or "false" in line or "host: " in line:
+                print(f"  {line}", file=sys.stderr, flush=True)
+
+
+def host_sample():
+    """A snapshot of what the host gave this process: wall and process CPU
+    seconds, the 1-minute load average, the CPU steal time (/proc/stat,
+    USER_HZ ticks) and the cgroup's CPU throttling (cpu.stat), each where
+    the system exposes it."""
+    snap = {"wall": time.perf_counter(), "cpu": time.process_time(),
+            "threads": threading.active_count()}
+    try:
+        snap["load1"] = os.getloadavg()[0]
+    except OSError:
+        pass
+    try:
+        with open("/proc/stat") as f:
+            snap["steal"] = int(f.readline().split()[8])
+    except (OSError, IndexError, ValueError):
+        pass
+    try:
+        with open("/sys/fs/cgroup/cpu.stat") as f:
+            stat = dict(line.split() for line in f if line.strip())
+        snap["throttled"] = int(stat["nr_throttled"])
+        snap["throttled_us"] = int(stat["throttled_usec"])
+    except (OSError, KeyError, ValueError):
+        pass
+    return snap
+
+
+def host_text(a, b):
+    """What the host gave the process between two :func:`host_sample`s."""
+    wall = b["wall"] - a["wall"]
+    parts = [f"process CPU {b['cpu'] - a['cpu']:.2f} s over {wall:.2f} s "
+             f"wall, {b['threads']} threads"]
+    if "load1" in b:
+        parts.append(f"load average {a['load1']:.2f} -> {b['load1']:.2f} "
+                     f"({os.cpu_count()} CPUs)")
+    if "steal" in a and "steal" in b:
+        parts.append(f"steal {b['steal'] - a['steal']} ticks")
+    if "throttled" in a and "throttled" in b:
+        parts.append(f"cgroup throttled {b['throttled'] - a['throttled']} "
+                     f"times, {(b['throttled_us'] - a['throttled_us']) / 1e3:.1f}"
+                     f" ms")
+    return "host: " + "; ".join(parts)
 
 
 def kernel_modules():
@@ -267,13 +335,24 @@ def cuda_ms(fn, reps=REPS):
     return cuda_times({"fn": fn}, reps)["fn"]
 
 
+def peaks():
+    """The published H100 SXM peaks (NVIDIA data sheet, 700 W), the one
+    table of the repo (``utils/roofline.py``): FP32 outside the tensor
+    cores, dense TF32 on them, and HBM3 bandwidth. Every kernel here runs
+    FP32 FMA, but for the middle Schulz steps of K1, K3 at n = 120 and K5,
+    which run three TF32 passes on the tensor cores."""
+    from go1_qp_mpc_controller_torch.utils import roofline
+    return roofline.H100_SXM
+
+
 def bound(flops, nbytes, tf32x3_flops=0.0):
     """(bound_ms, bound_by): the larger of the operations' time (``flops``
     at the FP32 peak plus ``tf32x3_flops`` at three TF32 passes on the
     tensor cores' peak) and the byte time at the HBM peak."""
-    ops_ms = (flops / PEAK_FP32_FLOPS + 3.0 * tf32x3_flops
-              / PEAK_TF32_FLOPS) * 1e3
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    peak = peaks()
+    ops_ms = (flops / peak.fp32_flops + 3.0 * tf32x3_flops
+              / peak.tf32_flops) * 1e3
+    bytes_ms = nbytes / peak.hbm_bytes * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
 
@@ -1510,10 +1589,13 @@ def sweep_phase(seed, device, card, batch=SWEEP_BATCH, chunks=SWEEP_CHUNKS):
     GRFs against the same solve in float64 on the CPU (``f64_gate``) and
     JAX's physical bars at its own size and settings. Returns (counts by
     path, lines, passed)."""
+    import statistics
+
     import torch
     from go1_qp_mpc_controller_torch.config import presets
     from go1_qp_mpc_controller_torch.ops import admm
     from go1_qp_mpc_controller_torch.parallel import sweep
+    from go1_qp_mpc_controller_torch.utils import roofline
 
     f32, f64 = torch.float32, torch.float64
     _, params, _ = presets.load_preset("gazebo_mpc", f32, device=device)
@@ -1547,6 +1629,11 @@ def sweep_phase(seed, device, card, batch=SWEEP_BATCH, chunks=SWEEP_CHUNKS):
     phys = sweep.make_sweep_fn(device, 0.0025, admm.ADMMSettings(**PHYSICAL))(
         phys_scn)
     bars = physical_bars(phys_scn, phys.grf)
+    peak = roofline.device_peaks(device)
+    solved = {"dense": batch, "fused": batch * chunks}
+    fields = {k: roofline.summarize(roofline.cold_solve_stages(routes[k]),
+                                    solved[k] / statistics.median(walls[k]),
+                                    peak) for k in routes}
     dense_c, fused_c = counts["sweep_dense"], counts["sweep_fused"]
     segments = routes["dense"].segments
     checks = {
@@ -1581,11 +1668,257 @@ def sweep_phase(seed, device, card, batch=SWEEP_BATCH, chunks=SWEEP_CHUNKS):
         f"scenarios, per-scenario max |GRF error|: dense "
         f"{gap_text(*gaps['dense'])}; fused {gap_text(*gaps['fused'])}; "
         f"gate p50 and p90 <= {F64_FACTOR:g} x plain + {F64_SLACK:g} N",
+        f"sweep roofline against {peak.name} (known {peak.known}) at the "
+        f"median rates: dense {json.dumps(fields['dense'])}; fused "
+        f"{json.dumps(fields['fused'])}",
         f"sweep physical bars (tests/test_sharding.py:59-82: seed 0, batch "
         f"{PHYSICAL_BATCH}, {PHYSICAL}, mpc_dt 0.0025) {json.dumps(bars)}",
         f"sweep checks {json.dumps(checks)} "
         f"{'PASS' if all(checks.values()) else 'FAIL'}"]
     return counts, lines, all(checks.values())
+
+
+def same_bits(a, b):
+    """Whether two tensors hold the same bits (NaN payloads included)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        as_int = {torch.float32: torch.int32, torch.float64: torch.int64}
+        a, b = (t.contiguous().view(as_int[t.dtype]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def mesh_tick(carry, model, step, dt=0.002):
+    """One closed-loop tick of ``carry`` with the controller step
+    ``step``: sensors, the EKF, ``step``, the plant."""
+    from go1_qp_mpc_controller_torch.ctrl import controller
+    from go1_qp_mpc_controller_torch.envs import rollout, srb_sim
+
+    sensors = srb_sim.read_sensors(carry.sim, model, carry.ctrl.contacts,
+                                   carry.stance_forces_z, dt)
+    ctrl = step(controller.sensor_update(carry.ctrl, model, sensors, dt))
+    sim, fz = srb_sim.step(carry.sim, model, ctrl.joint_torques,
+                           ctrl.contacts, ctrl.foot_pos_target_last_time, dt)
+    return rollout.RolloutCarry(ctrl=ctrl, sim=sim, stance_forces_z=fz)
+
+
+def lqr_operands(batch, h, seed, device):
+    """A stable random closed-loop system in the stagewise shapes
+    (tests/test_torch_mesh.py's distribution), float32 on ``device``."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    f32 = torch.float32
+    t = lambda *shape: torch.randn(shape, generator=gen, dtype=torch.float64)
+    ops = {"a_d": torch.eye(13) + 0.01 * t(batch, 13, 13),
+           "b_d": 0.02 * t(batch, h, 13, 12),
+           "qs": 0.1 + 1.9 * torch.rand((batch, 13), generator=gen,
+                                         dtype=torch.float64),
+           "rbar": torch.diag_embed(0.5 + 1.5 * torch.rand(
+               (batch, 12), generator=gen, dtype=torch.float64)),
+           "g": t(batch, h, 12), "c_lin": t(batch, h, 13)}
+    return {k: v.to(device=device, dtype=f32) for k, v in ops.items()}
+
+
+def mesh_phase(seed, device, card, batch=SWEEP_BATCH):
+    """The multi-device layer at world size 1 on this card
+    (``parallel/mesh.py``, ``parallel/horizon.py``, the mesh form of
+    ``parallel/sweep.py``), then ``rollout --trace``.
+
+    The path, counted: ``init_distributed`` (a world-1 NCCL group), the
+    mesh sweep at ``batch`` on both mpc = 1 routes (dense polished: K3,
+    K6; fused cold: K1, K6), ``MESH_CTRL_TICKS`` ticks of the sharded
+    controller step at ``batch``, ``lqr_solve_sharded`` at H =
+    ``LQR_H`` and ``main.py rollout --trace`` (``MESH_TRACE_STEPS``
+    steps, batch 1). Then, uncounted, what it is held against: the
+    one-card ``make_sweep_fn`` and ``control_step_batched`` (equal bits),
+    the port's ``_lqr_solve`` (``LQR_TOL`` x max |u|), and the mpc-axis
+    partials summed serially (n = 2 and 5) solved on the card against the
+    dense condensation's float64 solve on the CPU (``f64_gate``). Prints
+    each route's rate and its roofline fields against the card's peaks;
+    destroys the group. Returns (counts by path, lines, passed)."""
+    import contextlib
+    import io
+    import statistics
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from go1_qp_mpc_controller_torch import main as port_main
+    from go1_qp_mpc_controller_torch.config import presets
+    from go1_qp_mpc_controller_torch.ctrl import controller
+    from go1_qp_mpc_controller_torch.envs import rollout
+    from go1_qp_mpc_controller_torch.models import types
+    from go1_qp_mpc_controller_torch.ops import admm, stagewise
+    from go1_qp_mpc_controller_torch.parallel import horizon
+    from go1_qp_mpc_controller_torch.parallel import mesh as mesh_lib
+    from go1_qp_mpc_controller_torch.parallel import sweep
+    from go1_qp_mpc_controller_torch.utils import graphs, roofline, viz
+
+    f32, f64 = torch.float32, torch.float64
+    _, params, _ = presets.load_preset("gazebo_mpc", f32, device=device)
+    dt = float(params.mpc_dt)
+    routes = {"dense": admm.ADMMSettings(**SWEEP_DENSE),
+              "fused": admm.ADMMSettings(**SWEEP_FUSED)}
+    scn = sweep.random_scenarios(seed, batch, f32, device)
+    model = types.default_robot_model(f32, device)
+    ctrl_params = types.default_ctrl_params(f32, device)
+    start = rollout.init_carry(model, ctrl_params, batch, dtype=f32,
+                               device=device)
+    gen = torch.Generator().manual_seed(seed)
+    pos = start.sim.root_pos.clone()
+    pos[:, 2] += (0.005 * torch.randn((batch,), generator=gen)).to(device)
+    start = start._replace(sim=start.sim._replace(
+        root_pos=pos, root_lin_vel=start.sim.root_lin_vel
+        + (0.01 * torch.randn((batch, 3), generator=gen)).to(device)))
+    ref = graphs.clone(start)
+    lq = lqr_operands(batch // 4, LQR_H, seed, device)
+    trace_dir = tempfile.TemporaryDirectory()
+    npz = os.path.join(trace_dir.name, "rollout.npz")
+
+    reset_counts()
+    mesh_device = mesh_lib.init_distributed(device)
+    try:
+        mesh = mesh_lib.make_mesh(1)
+        fns = {k: sweep.make_sweep_fn(mesh, dt, st)
+               for k, st in routes.items()}
+        outs = {k: fn(scn) for k, fn in fns.items()}
+        step = mesh_lib.make_sharded_control_step(
+            mesh, model, ctrl_params, 0.002, settings=routes["dense"],
+            use_terrain_adapt=False)
+        shard = mesh_lib.scenario_sharding(mesh, start)
+        for _ in range(MESH_CTRL_TICKS):
+            shard = mesh_tick(shard, model, step)
+        fac = stagewise._riccati_factor(lq["a_d"], lq["b_d"], lq["qs"],
+                                        lq["rbar"])
+        u_mesh = horizon.lqr_solve_sharded(fac, lq["a_d"], lq["b_d"],
+                                           lq["g"], lq["c_lin"],
+                                           mesh.group(mesh_lib.MPC_AXIS))
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            port_main.main(["--device", str(device), "--preset",
+                            "gazebo_mpc", "rollout", "--steps",
+                            str(MESH_TRACE_STEPS), "--trace", npz])
+        counts = read_counts()
+        # the mesh sweep and the one-card sweep timed in turns
+        one_fns = {k: sweep.make_sweep_fn(device, dt, st)
+                   for k, st in routes.items()}
+        walls = {}
+        for _ in range(MESH_SPANS):
+            for k in routes:
+                for tag, fn in (("mesh", fns[k]), ("one", one_fns[k])):
+                    walls.setdefault((tag, k), []).extend(
+                        wall_spans(lambda fn=fn: fn(scn), 1))
+        world, backend = dist.get_world_size(), dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+
+    # what the path is held against, uncounted
+    one = {k: fn(scn) for k, fn in one_fns.items()}
+    sweep_equal = {
+        k: all(same_bits(getattr(outs[k], f), getattr(one[k], f))
+               for f in ("grf", "forces_all", "primal_res", "dual_res"))
+        and outs[k].stats["num_solves"] == one[k].stats["num_solves"]
+        and all(same_bits(outs[k].stats[f], one[k].stats[f])
+                for f in ("max_primal_res", "max_dual_res"))
+        for k in routes}
+    single = lambda s: controller.control_step_batched(
+        s, model, ctrl_params, 0.002, settings=routes["dense"],
+        use_terrain_adapt=False, compact_k=256)
+    for _ in range(MESH_CTRL_TICKS):
+        ref = mesh_tick(ref, model, single)
+    ctrl_equal = all(same_bits(getattr(shard.ctrl, f), getattr(ref.ctrl, f))
+                     for f in ("foot_forces_grf", "joint_torques",
+                               "qp_warm_minv", "qp_warm_x"))
+    # the carried inverses the dense cold route leaves NaN (a warm tick
+    # then flags those scenarios cold again)
+    nan_minv = int(torch.isnan(shard.ctrl.qp_warm_minv).flatten(1).any(1)
+                   .sum())
+    fac["c_lin"] = lq["c_lin"]
+    f_c = torch.einsum('bhyx,bhy->bhx', fac["acl"], lq["c_lin"])
+    u_seq = stagewise._lqr_solve(fac, lq["b_d"], f_c, lq["g"])
+    u_par = stagewise._lqr_solve(fac, lq["b_d"], f_c, lq["g"], parallel=True)
+    scale = float(u_seq.abs().max())
+    lqr_err = {name: float((u_mesh - u).abs().max()) / scale
+               for name, u in (("sequential", u_seq), ("parallel", u_par))}
+
+    n = SWEEP_F64_SCENARIOS
+    head = sweep.take(scn, slice(0, n))
+    a_d, b_d = sweep.discretize(head, dt)
+    b_list = b_d[:, None].expand(-1, 10, -1, -1)
+    dense_qp = sweep.srb.condense_nilpotent_const(
+        a_d, b_d, head.x0, head.x_ref, head.q_weights, head.r_weights,
+        head.contacts)
+    ref_grf = {dtype: sweep.make_sweep_fn("cpu", dt, routes["dense"])(
+        on_cpu(head, dtype)).grf for dtype in (f64, f32)}
+    partial_gaps, qp_err = {}, {}
+    for members in MESH_PARTIAL_N:
+        parts = [sweep._condense_mpc_partial(a_d, b_list, head, k, members)
+                 for k in range(members)]
+        qp = sweep._mpc_qp(sum(p[0] for p in parts),
+                           sum(p[1] for p in parts), head)
+        qp_err[members] = max(
+            float((getattr(qp, f) - getattr(dense_qp, f)).abs().max()
+                  / getattr(dense_qp, f).abs().max())
+            for f in ("hessian", "gradient"))
+        grf = admm.mpc_solve(qp, routes["dense"], mu=head.mu).x[:, :12]
+        partial_gaps[members] = (grf_gap(grf.reshape(-1, 4, 3), ref_grf[f64]),
+                                 grf_gap(ref_grf[f32], ref_grf[f64]))
+
+    loaded = viz.load_trace(npz)
+    trace_dir.cleanup()
+    trace_ok = (set(loaded) == set(rollout.RolloutTrace._fields) | {"dt"}
+                and loaded["root_pos"].shape == (MESH_TRACE_STEPS, 3)
+                and all(np.isfinite(v).all() for v in loaded.values()
+                        if v.dtype.kind == "f"))
+    peak = roofline.device_peaks(device)
+    fields = {
+        k: roofline.summarize(roofline.cold_solve_stages(routes[k]),
+                              batch / statistics.median(walls["mesh", k]),
+                              peak)
+        for k in routes}
+    checks = {
+        "world_1_nccl": world == 1 and backend == "nccl"
+        and mesh.shape == {"data": 1, "mpc": 1}
+        and mesh.device == mesh_device,
+        "finite": all(bool(torch.isfinite(o.forces_all).all())
+                      for o in outs.values()),
+        "sweep_equals_one_card_bits": all(sweep_equal.values()),
+        "ctrl_tick_equals_control_step_batched_bits": ctrl_equal,
+        "lqr_sharded_vs_lqr_solve": max(lqr_err.values()) <= LQR_TOL,
+        "mpc_partials_vs_float64": all(f64_gate(*g)
+                                       for g in partial_gaps.values()),
+        "rollout_trace": trace_ok,
+        "k1_k3_k6_launched": all(counts[k] > 0 for k in (
+            "kkt_schulz", "schulz_batch", "admm_iterations"))}
+    lines = [
+        f"mesh: world {world} ({backend}), mesh {json.dumps(mesh.shape)}; "
+        f"the mesh sweep at batch {batch}, a call a span: dense "
+        f"{rate_text(batch, walls['mesh', 'dense'])}, fused "
+        f"{rate_text(batch, walls['mesh', 'fused'])}; the one-card "
+        f"make_sweep_fn in turns with it: dense "
+        f"{rate_text(batch, walls['one', 'dense'])}, fused "
+        f"{rate_text(batch, walls['one', 'fused'])}; equal bits to it "
+        f"{json.dumps(sweep_equal)}; on {card}",
+        f"mesh roofline against {peak.name} (known {peak.known}): dense "
+        f"{json.dumps(fields['dense'])}; fused {json.dumps(fields['fused'])}",
+        f"mesh: sharded control step, {MESH_CTRL_TICKS} ticks at batch "
+        f"{batch}, equal bits to control_step_batched: {ctrl_equal} "
+        f"(carried inverses holding NaN: {nan_minv}); "
+        f"lqr_solve_sharded (H = {LQR_H}, batch {batch // 4}) max |u - "
+        f"_lqr_solve| / max |u|: {json.dumps(lqr_err)} (gate {LQR_TOL:g})",
+        f"mesh: mpc partials summed serially, first {n} scenarios: max "
+        f"relative H / g error against the dense condensation "
+        f"{json.dumps(qp_err)}; solved GRF against float64 on the CPU "
+        + "; ".join(f"n = {m}: {gap_text(*g)}"
+                    for m, g in partial_gaps.items()),
+        f"mesh: rollout --trace ({MESH_TRACE_STEPS} steps) "
+        f"{printed.getvalue().strip()} -> keys {sorted(loaded)}; launches "
+        f"{json.dumps(counts)}",
+        f"mesh checks {json.dumps(checks)} "
+        f"{'PASS' if all(checks.values()) else 'FAIL'}"]
+    return {"mesh": counts}, lines, all(checks.values())
 
 
 def stagewise_chain(scn, h, ticks):
@@ -2198,11 +2531,13 @@ def runtime_phase(preset, device, card, time_scale=None, duration=None):
         cl.state = feeder.initial_ctrl_state()
         cl.warmup(dual=True)
         reset_counts()
+        host0 = host_sample()
         feeder.start(duration_s=duration + 30.0)
         t0 = time.perf_counter()
         n = cl.run_dual(duration_s=duration)
         wall = time.perf_counter() - t0
         feeder.stop()
+        host1 = host_sample()
         counts = read_counts()
         if feeder.error is not None:
             raise RuntimeError("the sensor feed failed") from feeder.error
@@ -2255,6 +2590,7 @@ def runtime_phase(preset, device, card, time_scale=None, duration=None):
         f"estimated root {np.round(est_root, 4).tolist()}, final max|tau| "
         f"{tau:.3f} (ceiling {ceiling:.3f}); launches {json.dumps(counts)}",
         f"runtime {preset}: {live_line}",
+        f"runtime {preset} {host_text(host0, host1)}",
         f"runtime {preset} checks {json.dumps(checks)} "
         f"{'PASS' if all(checks.values()) else 'FAIL'}"]
     return counts, lines, all(checks.values())
@@ -2489,6 +2825,7 @@ def rl_loop_phase(seed, device, card, time_scale):
                                       period_s=cfg.deploy_period,
                                       time_scale=time_scale, device=device)
         reset_counts()
+        host0 = host_sample()
         feeder.start(duration_s=RL_LOOP_SECONDS + 30.0)
         t0 = time.perf_counter()
         loop.start(duration_s=RL_LOOP_SECONDS)
@@ -2503,6 +2840,7 @@ def rl_loop_phase(seed, device, card, time_scale):
         loop._thread.join(timeout=RL_LOOP_SECONDS + 30.0)
         ended = not loop._thread.is_alive()
         feeder.stop()
+        host1 = host_sample()
         counts = read_counts()
         if loop.error is not None:
             raise RuntimeError("the RL loop failed") from loop.error
@@ -2551,6 +2889,7 @@ def rl_loop_phase(seed, device, card, time_scale):
         f"{max(servo_z, default=float('nan')):.4f} m; plant root "
         f"{np.round(root, 4).tolist()}; launches {json.dumps(counts)}",
         f"{name}: {live_line}",
+        f"{name} {host_text(host0, host1)}",
         f"{name} checks {json.dumps(checks)} "
         f"{'PASS' if all(checks.values()) else 'FAIL'}"]
     return counts, lines, all(checks.values())
@@ -2840,6 +3179,7 @@ def main(argv=None):
 
     ok = True
     records = []
+    failed = []
     phases = [
         ("K1", lambda: k1_phase(BATCH,
                                 torch.Generator().manual_seed(args.seed),
@@ -2861,12 +3201,12 @@ def main(argv=None):
             record, lines, passed = phase()
             if record is not None:
                 records.append(record)
-            for line in lines:
-                print(line, flush=True)
+            _report(name, lines, passed, failed)
             ok &= passed
         except Exception:     # report the phase and go on to the next
             traceback.print_exc()
             print(f"FAIL {name} phase raised", flush=True)
+            failed.append(f"{name} (raised)")
             ok = False
 
     # the paths, each with every launch counter set to 0 just before it
@@ -2903,6 +3243,7 @@ def main(argv=None):
              ("one robot", lambda: single_robot_phase(device, card)),
              ("polished batched", polished), ("K5", k5_entry),
              ("sweep", lambda: sweep_phase(args.seed + 8, device, card)),
+             ("mesh", lambda: mesh_phase(args.seed + 12, device, card)),
              ("long horizon", lambda: long_horizon_phase(args.seed + 9,
                                                          device, card))]
     paths += [(f"runtime {preset}", lambda p=preset: runtime(p))
@@ -2927,12 +3268,12 @@ def main(argv=None):
         try:
             counts, lines, passed = path()
             by_path.update(counts)
-            for line in lines:
-                print(line, flush=True)
+            _report(name, lines, passed, failed)
             ok &= passed
         except Exception:
             traceback.print_exc()
             print(f"FAIL {name} phase raised", flush=True)
+            failed.append(f"{name} (raised)")
             ok = False
     routes = {}
     for name, label in (("kkt_schulz", "K1"), ("schulz_batch", "K3")):
@@ -2950,9 +3291,12 @@ def main(argv=None):
         if record["launches"] == 0:
             print(f"FAIL {record['name']} was launched on no path",
                   flush=True)
+            failed.append(f"{record['name']} launched on no path")
             ok = False
     if not ok:
         print("FAIL at least one phase failed; no result", flush=True)
+        print(f"FAIL failed: {json.dumps(failed)}", file=sys.stderr,
+              flush=True)
         return 1
     print(f"card: {card}", flush=True)
     print(json.dumps({"kernels": records}), flush=True)

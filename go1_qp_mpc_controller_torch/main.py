@@ -13,7 +13,10 @@ Modes:
   rollout - closed-loop trot of one robot on the SRB simulator (the Gazebo
             stand-in), printing tracking statistics; ``--horizon H`` other
             than 10 solves the GRFs with the stagewise long-horizon solver.
-  sweep   - a batch of randomized MPC scenarios solved on one card.
+  sweep   - a batch of randomized MPC scenarios solved over a (data, mpc)
+            mesh of cards; ``torchrun --nproc_per_node=N -m
+            go1_qp_mpc_controller_torch.main sweep --mpc-parallel k``
+            across N cards, one process alone on one card.
   loop    - the real-time host loop against the C++ bridge, fed by the
             simulated 1 kHz sensor feed (or an external feed with
             --no-feeder).
@@ -26,8 +29,8 @@ Modes:
   python -m go1_qp_mpc_controller_torch.main rl --steps 800
   python -m go1_qp_mpc_controller_torch.main rl-loop --duration 5
 
-All run on the CUDA card unless ``--device cpu`` is given. Not ported yet:
-a sweep across devices (``--mpc-parallel`` > 1), ROADMAP queue 1.
+All run on the CUDA card unless ``--device cpu`` is given (a CPU sweep
+under ``torchrun`` joins over gloo).
 """
 
 import argparse
@@ -42,9 +45,6 @@ def cmd_rollout(args, model, params, static, device):
     from go1_qp_mpc_controller_torch.envs import rollout
     from go1_qp_mpc_controller_torch.ops import admm
 
-    if args.trace or args.plot:
-        raise NotImplementedError("--trace / --plot (utils/viz.py) are not "
-                                  "ported yet (ROADMAP queue 1, item 16)")
     f32 = torch.float32
     # the stagewise path sizes the warm carry for its horizon
     carry = rollout.init_carry(model, params, 1, height=args.height,
@@ -73,39 +73,59 @@ def cmd_rollout(args, model, params, static, device):
         settings=settings, warm_settings=warm_settings, command_fn=command,
         estimate=not args.no_ekf,
         use_terrain_adapt=static.use_terrain_adapt, horizon=args.horizon)
-    pos = trace.root_pos[:, 0].cpu().numpy()
-    vel_tr = trace.root_lin_vel[:, 0].cpu().numpy()
-    euler = trace.root_euler[:, 0].cpu().numpy()
+    # the one robot's trace, (T, ...) leaves as the JAX package's
+    trace = type(trace)(*[v[:, 0] for v in trace])
+    if args.trace or args.plot:
+        from go1_qp_mpc_controller_torch.utils import viz
+        title = f"{args.preset} rollout (vx={args.vx}, {args.steps} steps)"
+        if args.trace:
+            viz.save_trace(args.trace, trace, args.dt)
+        if args.plot:
+            viz.plot_rollout(viz.load_trace(args.trace) if args.trace
+                             else viz.trace_dict(trace, args.dt),
+                             args.plot, title=title)
+    pos = trace.root_pos.cpu().numpy()
+    vel_tr = trace.root_lin_vel.cpu().numpy()
+    euler = trace.root_euler.cpu().numpy()
+    # the ranges skip the 100 standing ticks; a run as short as the stand
+    # reads all of its ticks
+    settle = 100 if args.steps > 100 else 0
     print(json.dumps({
         "final_pos": pos[-1].round(4).tolist(),
         "mean_vx": round(float(vel_tr[args.steps // 3:, 0].mean()), 4),
-        "height_range": [round(float(pos[100:, 2].min()), 4),
-                         round(float(pos[100:, 2].max()), 4)],
-        "max_tilt_rad": round(float(np.abs(euler[100:, :2]).max()), 4),
+        "height_range": [round(float(pos[settle:, 2].min()), 4),
+                         round(float(pos[settle:, 2].max()), 4)],
+        "max_tilt_rad": round(float(np.abs(euler[settle:, :2]).max()), 4),
     }))
 
 
 def cmd_sweep(args, model, params, static, device):
+    """Randomized scenarios solved over the (data, mpc) mesh of the
+    process group (``main`` joined it): one process is a world of one on
+    this card; ``torchrun --nproc_per_node=N`` runs N ranks, a card each.
+    Rank 0 prints."""
     import torch
+    import torch.distributed as dist
 
     from go1_qp_mpc_controller_torch.ops import admm
+    from go1_qp_mpc_controller_torch.parallel import mesh as mesh_lib
     from go1_qp_mpc_controller_torch.parallel import sweep
 
-    if args.mpc_parallel != 1:
-        raise NotImplementedError(
-            f"--mpc-parallel {args.mpc_parallel}: the sweep across devices "
-            f"and its mpc-axis condensation are not ported yet (ROADMAP "
-            f"queue 1, the multi-device sweep)")
-    fn = sweep.make_sweep_fn(device, float(params.mpc_dt),
-                             admm.ADMMSettings(seg_iters=25, segments=3))
-    out = fn(sweep.random_scenarios(args.seed, args.batch, torch.float32,
-                                    device))
-    print(json.dumps({
-        "num_solves": out.stats["num_solves"],
-        "max_primal_res": float(out.stats["max_primal_res"]),
-        "max_dual_res": float(out.stats["max_dual_res"]),
-        "mesh": {"data": 1, "mpc": 1},
-    }))
+    try:
+        mesh = mesh_lib.make_mesh(args.mpc_parallel)
+        fn = sweep.make_sweep_fn(mesh, float(params.mpc_dt),
+                                 admm.ADMMSettings(seg_iters=25, segments=3))
+        out = fn(sweep.random_scenarios(args.seed, args.batch,
+                                        torch.float32, device))
+        if dist.get_rank() == 0:
+            print(json.dumps({
+                "num_solves": out.stats["num_solves"],
+                "max_primal_res": float(out.stats["max_primal_res"]),
+                "max_dual_res": float(out.stats["max_dual_res"]),
+                "mesh": mesh.shape,
+            }))
+    finally:
+        dist.destroy_process_group()
 
 
 def joy_demo_source(duration, dt):
@@ -298,16 +318,17 @@ def main(argv=None):
                    help="MPC horizon; values != 10 route the GRF solve "
                         "to the stagewise O(H) solver")
     p.add_argument("--trace", default=None, metavar="OUT.npz",
-                   help="not ported yet")
+                   help="save the rollout trace (utils/viz.py)")
     p.add_argument("--plot", default=None, metavar="OUT.png",
-                   help="not ported yet")
+                   help="render the gait-health figure (needs matplotlib)")
     p.set_defaults(fn=cmd_rollout)
 
     p = sub.add_parser("sweep")
     p.add_argument("--batch", type=int, default=4096)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mpc-parallel", type=int, default=1,
-                   help="only 1 (one card) is ported")
+                   help="size of the mesh's mpc axis (must divide the "
+                        "number of ranks)")
     p.set_defaults(fn=cmd_sweep)
 
     p = sub.add_parser("loop")
@@ -371,7 +392,13 @@ def main(argv=None):
 
     from go1_qp_mpc_controller_torch.config import presets
     from go1_qp_mpc_controller_torch.utils.device import resolve_device
-    device = resolve_device(args.device)
+    if args.fn is cmd_sweep:
+        # a rank joins the group, and takes its card, before anything
+        # touches a card
+        from go1_qp_mpc_controller_torch.parallel import mesh as mesh_lib
+        device = mesh_lib.init_distributed(args.device)
+    else:
+        device = resolve_device(args.device)
     model, params, static = presets.load_preset(args.preset, torch.float32,
                                                 device=device)
     args.fn(args, model, params, static, device)

@@ -6,7 +6,10 @@ are the 4 body->foot FK vectors, 4 leg-odometry velocities and 4 foot
 heights, with contact-weighted noise inflation (x1001 for swing legs). The
 innovation matrix is inverted by the scaled Newton-Schulz schedule at
 ``_scaled_schulz_coeffs(1e-5)`` (kernel K4 on float32 CUDA input,
-``ops/schulz_lanes.py``) and the covariance takes the Joseph form.
+``ops/schulz_lanes.py``) and the covariance takes the Joseph form;
+``innovation_solver="chol"`` keeps the reference's exact factorization and
+its simple covariance form for reference checks (plain PyTorch, as in the
+JAX package).
 
 With ``sinv="plain"`` this is the plain version of the EKF half of kernel
 K2 (``ops/observe_ekf.py``).
@@ -35,6 +38,12 @@ SENSOR_NOISE_ZFOOT = 0.001
 # lower spectral edge of the innovation inverse's Schulz schedule: the
 # balanced innovation matrix has cond ~1.3e3 on the controller presets
 SINV_L0 = 1e-5
+
+
+class EKFResult(NamedTuple):
+    x: torch.Tensor                   # (B, 18) posterior state
+    P: torch.Tensor                   # (B, 18, 18) posterior covariance
+    estimated_contacts: torch.Tensor  # (B, 4) in [0, 1]
 
 
 def _measurement_matrix():
@@ -165,7 +174,7 @@ def predict(x, P, dt, root_rot_mat, imu_acc, imu_ang_vel, foot_pos_rel,
 def correct(pred, s_inv):
     """The KF update from :func:`predict`'s operands and the innovation
     inverse (A1BasicEKF.cpp:130-147): gain, state, Joseph-form covariance
-    and the xy covariance surgery. Returns (x, P, est_contacts)."""
+    and the xy covariance surgery. Returns :class:`EKFResult`."""
     pbar, r_diag = pred.pbar, pred.r_diag
     dtype, device = pbar.dtype, pbar.device
     c_mat = _c_on(dtype, device)
@@ -176,6 +185,28 @@ def correct(pred, s_inv):
     ikc = eye18 - k_gain @ c_mat
     p_new = (ikc @ pbar @ ikc.transpose(-1, -2)
              + k_gain @ torch.diag_embed(r_diag) @ k_gain.transpose(-1, -2))
+    return _finish(x_new, p_new, pred.est_c)
+
+
+def correct_chol(pred):
+    """The KF update by the exact Cholesky solve of the innovation matrix
+    and the reference's simple covariance form P - P C' S^-1 C P
+    (A1BasicEKF.cpp:130-147; the JAX package's ``innovation_solver="chol"``
+    route). Returns :class:`EKFResult`."""
+    pbar = pred.pbar
+    c_mat = _c_on(pbar.dtype, pbar.device)
+    chol = torch.linalg.cholesky(pred.s_mat)
+    serr = torch.cholesky_solve(pred.err[..., None], chol)
+    x_new = pred.xbar + (pbar @ (c_mat.T @ serr))[..., 0]
+    sc = torch.cholesky_solve(c_mat.expand(pbar.shape[0], -1, -1), chol)
+    p_new = pbar - pbar @ c_mat.T @ sc @ pbar
+    return _finish(x_new, p_new, pred.est_c)
+
+
+def _finish(x_new, p_new, est_c):
+    """Symmetrize the posterior covariance and apply the xy covariance
+    surgery."""
+    dtype, device = p_new.dtype, p_new.device
     p_new = 0.5 * (p_new + p_new.transpose(-1, -2))
 
     # xy-position covariance surgery (A1BasicEKF.cpp:143-147), branchless
@@ -185,15 +216,17 @@ def correct(pred, s_inv):
     mask[2:, 0:2] = 0.0
     mask[0:2, 0:2] = 0.1
     p_new = torch.where((det2 > 1e-6)[:, None, None], p_new * mask, p_new)
-    return x_new, p_new, pred.est_c
+    return EKFResult(x=x_new, P=p_new, estimated_contacts=est_c)
 
 
 def update_estimation(x, P, dt, root_rot_mat, imu_acc, imu_ang_vel,
                       foot_pos_rel, foot_vel_rel, foot_force, movement_mode,
-                      assume_flat_ground=True, contact_force_norm=100.0,
-                      sinv="auto"):
+                      assume_flat_ground=True, innovation_solver="schulz",
+                      contact_force_norm=100.0, sinv="auto"):
     """One KF predict + update tick (A1BasicEKF.cpp:70-164), batch first:
-    :func:`predict`, the innovation inverse, :func:`correct`.
+    :func:`predict`, then the innovation inverse and :func:`correct`, or
+    :func:`correct_chol`. The parameters keep the JAX package's order;
+    ``sinv`` is the port's own and comes last.
 
     Args:
       x: (B, 18); P: (B, 18, 18); dt: step length (float, or a 0-d
@@ -201,14 +234,22 @@ def update_estimation(x, P, dt, root_rot_mat, imu_acc, imu_ang_vel,
       root_rot_mat: (B, 3, 3); imu_acc, imu_ang_vel: (B, 3).
       foot_pos_rel, foot_vel_rel: (B, 4, 3) body-frame FK.
       foot_force: (B, 4); movement_mode: (B,) int, 0 = stand.
+      innovation_solver: "schulz" (the scaled Newton-Schulz inverse and
+        the Joseph form) or "chol" (the exact Cholesky solve and the
+        reference's simple covariance form, for reference checks).
       contact_force_norm: full-contact force scale (100 for A1 units).
-      sinv: the innovation inverse's route, "auto" (K4 on float32 CUDA
-        input) or "plain" (see :func:`innovation_inverse`).
+      sinv: the Schulz route's inverse, "auto" (K4 on float32 CUDA input)
+        or "plain" (see :func:`innovation_inverse`).
 
     Returns:
-      (x (B, 18), P (B, 18, 18), est_contacts (B, 4) in [0, 1]).
+      :class:`EKFResult` (x (B, 18), P (B, 18, 18), estimated_contacts
+      (B, 4) in [0, 1]).
     """
+    if innovation_solver not in ("schulz", "chol"):
+        raise ValueError(f"unknown innovation solver {innovation_solver!r}")
     pred = predict(x, P, dt, root_rot_mat, imu_acc, imu_ang_vel,
                    foot_pos_rel, foot_vel_rel, foot_force, movement_mode,
                    assume_flat_ground, contact_force_norm)
+    if innovation_solver == "chol":
+        return correct_chol(pred)
     return correct(pred, innovation_inverse(pred.s_mat, sinv))

@@ -198,6 +198,12 @@ def _affine_scan(e, f, reverse):
     Returns:
       (B, H, n).
     """
+    return _affine_scan_maps(e, f, reverse)[1]
+
+
+def _affine_scan_maps(e, f, reverse):
+    """:func:`_affine_scan` returning the composed maps (E, f) of every
+    prefix (``reverse``: suffix), (B, H, n, n) and (B, H, n)."""
     h = e.shape[1]
     d = 1
     while d < h:
@@ -210,7 +216,7 @@ def _affine_scan(e, f, reverse):
             e = torch.cat([e[:, :d], tail_e @ e[:, :-d]], 1)
             f = torch.cat([f[:, :d], _bmv(tail_e, f[:, :-d]) + tail_f], 1)
         d *= 2
-    return f
+    return e, f
 
 
 def _lqr_solve(fac, b_d, f_c, g, parallel=False):

@@ -1,25 +1,32 @@
-"""Scenario sweeps on one GPU: batches of randomized condensed-MPC solves.
+"""Scenario sweeps: batches of randomized condensed-MPC solves, on one
+card or over a (data, mpc) device mesh.
 
-Port of the single-device part of the JAX package's ``parallel/sweep.py``
-(its configs[2] batch of 4096 scenarios and configs[4] sweep of 100k+ in
-chunks). Where the JAX package shards the batch over a device mesh, here
-the whole batch is one program on one card; the mesh's ``mpc`` axis (the
-horizon-sharded condensation) waits for the multi-device port.
+Port of the JAX package's ``parallel/sweep.py`` (its configs[2] batch of
+4096 scenarios and configs[4] sweep of 100k+ in chunks). On one card the
+whole batch is one program; over a mesh (``parallel/mesh.py``) each rank
+solves its block of the data axis, along the ``mpc`` axis the
+Hessian / gradient contraction over the horizon-state rows is split and
+combined with an ``all_reduce`` (the intra-solve block reduction), and
+the summary statistics reduce over ``data``.
 
-Two solve routes, chosen by the settings as the JAX ``_solve_one`` does:
-one segment without polish or float64 refinement takes the fused cold
-solve on the lazy factors (``admm.mpc_solve_cold``: kernels K1 and K6);
-any other settings the dense solve (``admm.mpc_solve``: K3 and K6).
+Two solve routes at mpc = 1, chosen by the settings as the JAX
+``_solve_one`` does: one segment without polish or float64 refinement
+takes the fused cold solve on the lazy factors (``admm.mpc_solve_cold``:
+kernels K1 and K6); any other settings the dense solve
+(``admm.mpc_solve``: K3 and K6), which an mpc axis > 1 always takes.
 """
 
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from go1_qp_mpc_controller_torch.config import params as CP
 from go1_qp_mpc_controller_torch.models import srb
 from go1_qp_mpc_controller_torch.ops import admm
+from go1_qp_mpc_controller_torch.parallel import mesh as mesh_lib
+from go1_qp_mpc_controller_torch.parallel.mesh import DATA_AXIS, MPC_AXIS
 from go1_qp_mpc_controller_torch.utils.device import (pin_f32_matmuls,
                                                       resolve_device)
 
@@ -83,11 +90,94 @@ def _solve_one(scn, mpc_dt, settings):
     return admm.mpc_solve(qp, settings, mu=scn.mu)
 
 
+def _condense_mpc_partial(a_d, b_d_list, scn, k, n):
+    """Member ``k`` of ``n``'s part of the condensation with the (130,)
+    state-row contraction split over the mpc axis: its slice of horizon
+    steps' rows of B_qp, built from block(i, j) = A^(i-j) B_j (1/n of the
+    block assembly and of the contraction), and its partial B'QB and
+    B'Q(A x0 - xref) (the JAX ``_condense_mpc_sharded`` before its psum).
+
+    Args:
+      a_d: (B, 13, 13); b_d_list: (B, H, 13, 12) per-step B; scn: the
+        MpcScenario batch; k, n: the member index and count (n divides H).
+
+    Returns:
+      (hessian part (B, 120, 120), gradient part (B, 120)).
+    """
+    h, nx, nu = CP.PLAN_HORIZON, CP.MPC_STATE_DIM, CP.NUM_DOF
+    if h % n:
+        raise ValueError(f"the horizon {h} does not split over mpc={n}")
+    batch, s = a_d.shape[0], h // n
+    a_pows = [torch.eye(nx, dtype=a_d.dtype, device=a_d.device).expand(
+        batch, nx, nx)]
+    for _ in range(h):
+        a_pows.append(a_pows[-1] @ a_d)
+    a_pows = torch.stack(a_pows, 1)                     # (B, H+1): A^p
+    start = k * s
+    i_loc = torch.arange(start, start + s, device=a_d.device)
+    d = i_loc[:, None] - torch.arange(h, device=a_d.device)[None, :]
+    valid = (d >= 0).to(a_d.dtype)                      # (s, H)
+    ap = a_pows[:, d.clamp(0, h - 1)]                   # (B, s, H, nx, nx)
+    blocks = (torch.einsum('bsjxy,bjyu->bsjxu', ap, b_d_list)
+              * valid[:, :, None, None])
+    b_flat = blocks.transpose(2, 3).reshape(batch, s * nx, h * nu)
+    qw_rows = torch.tile(2.0 * scn.q_weights, (1, s))  # (B, s nx)
+    bq = b_flat * qw_rows[..., None]
+    hess_part = b_flat.transpose(1, 2) @ bq
+    resid = ((a_pows[:, i_loc + 1] @ scn.x0[:, None, :, None])[..., 0]
+             - scn.x_ref[:, start:start + s]).reshape(batch, s * nx, 1)
+    return hess_part, (bq.transpose(1, 2) @ resid)[..., 0]
+
+
+def _mpc_qp(hess_qq, gradient, scn):
+    """The CondensedQP from the summed contraction B'QB: adds the 2R
+    diagonal and the friction-pyramid bounds."""
+    hessian = hess_qq + torch.diag_embed(
+        torch.tile(2.0 * scn.r_weights, (1, CP.PLAN_HORIZON)))
+    lb, ub = srb._pyramid_bounds(scn.contacts, CP.MPC_FZ_MIN, CP.MPC_FZ_MAX,
+                                 hess_qq.dtype)
+    return srb.CondensedQP(hessian=hessian, gradient=gradient, lb=lb, ub=ub)
+
+
+def _condense_mpc_sharded(a_d, b_d_list, scn, mesh):
+    """The condensation split over the mesh's mpc axis: this rank's
+    :func:`_condense_mpc_partial`, summed over the axis by one
+    ``all_reduce`` each for the Hessian and the gradient."""
+    hess, grad = _condense_mpc_partial(a_d, b_d_list, scn,
+                                       mesh.index(MPC_AXIS),
+                                       mesh.shape[MPC_AXIS])
+    group = mesh.group(MPC_AXIS)
+    dist.all_reduce(hess, group=group)
+    dist.all_reduce(grad, group=group)
+    return _mpc_qp(hess, grad, scn)
+
+
+def _solve_mesh_block(scn, mpc_dt, settings, mesh):
+    """Solve this rank's data block: both one-card routes at mpc = 1, the
+    dense solve on the mpc-sharded condensation above it."""
+    if mesh.shape[MPC_AXIS] == 1:
+        return _solve_one(scn, mpc_dt, settings)
+    a_d, b_d = discretize(scn, mpc_dt)
+    b_d_list = b_d[:, None].expand(-1, CP.PLAN_HORIZON, -1, -1)
+    qp = _condense_mpc_sharded(a_d, b_d_list, scn, mesh)
+    return admm.mpc_solve(qp, settings, mu=scn.mu)
+
+
 def make_sweep_fn(device, mpc_dt, settings=admm.ADMMSettings()):
-    """The sweep program on ``device`` (None: the CUDA card): a function
-    MpcScenario (a batch on that device) -> SweepResult, whose ``stats``
-    hold ``num_solves`` (a float) and the batch's ``max_primal_res`` and
-    ``max_dual_res`` (0-dim tensors: reading them waits for the card)."""
+    """The sweep program: a function MpcScenario (a batch on the device)
+    -> SweepResult, whose ``stats`` hold ``num_solves`` (a float) and the
+    batch's ``max_primal_res`` and ``max_dual_res`` (0-dim tensors:
+    reading them waits for the card).
+
+    ``device`` is a device (None: the CUDA card), or a
+    :class:`parallel.mesh.Mesh`: then every rank passes the whole batch,
+    which must divide the data axis; each solves its block and returns the
+    whole batch's results (gathered over ``data``), with ``num_solves``
+    summed and the residual maxima taken over ``data`` (one
+    ``all_reduce``).
+    """
+    if isinstance(device, mesh_lib.Mesh):
+        return _make_mesh_sweep_fn(device, mpc_dt, settings)
     device = resolve_device(device)
 
     def fn(scn):
@@ -96,12 +186,39 @@ def make_sweep_fn(device, mpc_dt, settings=admm.ADMMSettings()):
                              f"sweep runs on {device}")
         pin_f32_matmuls()
         sol = _solve_one(scn, mpc_dt, settings)
-        return SweepResult(
-            grf=sol.x[:, :12].reshape(-1, 4, 3), forces_all=sol.x,
-            primal_res=sol.primal_res, dual_res=sol.dual_res,
-            stats={"num_solves": float(scn.x0.shape[0]),
-                   "max_primal_res": sol.primal_res.max(),
-                   "max_dual_res": sol.dual_res.max()})
+        return _result(sol.x, sol.primal_res, sol.dual_res,
+                       float(scn.x0.shape[0]), sol.primal_res.max(),
+                       sol.dual_res.max())
+
+    return fn
+
+
+def _result(x, primal_res, dual_res, num_solves, max_primal, max_dual):
+    return SweepResult(
+        grf=x[:, :12].reshape(-1, 4, 3), forces_all=x,
+        primal_res=primal_res, dual_res=dual_res,
+        stats={"num_solves": num_solves, "max_primal_res": max_primal,
+               "max_dual_res": max_dual})
+
+
+def _make_mesh_sweep_fn(mesh, mpc_dt, settings):
+    """:func:`make_sweep_fn` over a mesh (the JAX ``make_sweep_fn``)."""
+    def fn(scn):
+        if scn.x0.device != mesh.device:
+            raise ValueError(f"the scenarios live on {scn.x0.device}, this "
+                             f"rank runs on {mesh.device}")
+        pin_f32_matmuls()
+        local = mesh_lib.scenario_sharding(mesh, scn)
+        sol = _solve_mesh_block(local, mpc_dt, settings, mesh)
+        # the residual maxima in one all_reduce; the sum of the solves over
+        # the data axis is its size times the (equal) local batch, known
+        # without a collective or a wait for the card
+        worst = torch.stack([sol.primal_res.max(), sol.dual_res.max()])
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX,
+                        group=mesh.group(DATA_AXIS))
+        num = float(local.x0.shape[0] * mesh.shape[DATA_AXIS])
+        return _result(*mesh_lib.replicated(
+            mesh, (sol.x, sol.primal_res, sol.dual_res)), num, *worst)
 
     return fn
 

@@ -106,3 +106,13 @@ def moving_window_update_masked(state, new_value, mask):
     new_state = MovingWindowState(*[sel(a, b) for a, b in zip(upd, state)])
     avg_old = (state.sum + state.correction) / _window(state)
     return new_state, sel(avg_new, avg_old)
+
+
+def moving_window_update_if(state, new_value, pred):
+    """:func:`moving_window_update_masked` with the gate ``pred`` a 0-d
+    bool for every filter, or a bool per leading row (shape a prefix of
+    the filters' leading shape) — the reference's height-gated terrain
+    filter (A1RobotControl.cpp:340-345)."""
+    lead = state.count.shape
+    mask = pred.reshape(pred.shape + (1,) * (len(lead) - pred.dim()))
+    return moving_window_update_masked(state, new_value, mask.expand(lead))

@@ -69,6 +69,16 @@ def cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def pseudo_inverse_3x3(mat, rcond_scale=None):
+    """SVD pseudo-inverse of (..., 3, 3) matrices (Utils.cpp:44-52): the
+    reference's tolerance eps * max(rows, cols) * sigma_max, i.e.
+    ``torch.linalg.pinv`` at ``rtol = rcond_scale``, by default 3 x the
+    dtype's eps."""
+    if rcond_scale is None:
+        rcond_scale = 3.0 * torch.finfo(mat.dtype).eps
+    return torch.linalg.pinv(mat, rtol=rcond_scale)
+
+
 def solve_3x3(a, b):
     """Solve a x = b for (..., 3, 3) systems via the closed-form adjugate
     (no pivoting; a singular input yields inf/nan, caught by the callers'

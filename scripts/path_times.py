@@ -10,7 +10,8 @@ routes, launches, health): the batched paths (main, polished, chain), one
 robot (``single_robot_phase``: the trot and the balance-QP stand at batch
 1), the balance-QP stand alone with a profile of its device time (qp) and
 the real-time runtime (``runtime_phase`` on each of the checkout's
-``RUNTIME`` presets), the scenario sweep (``sweep_phase``), the long
+``RUNTIME`` presets), the scenario sweep (``sweep_phase``), the mesh at
+world size 1 (``mesh_phase``), the long
 horizon (``long_horizon_phase``), the RL rollout (``rl_phase``), the RL
 host loop (``rl_loop_phase`` at each of ``RL_LOOP_SCALES``), the log
 replay (``replay_phase``) and robustness / terrain
@@ -28,7 +29,7 @@ import os
 import sys
 
 PATHS = ("main", "polished", "chain", "robot", "qp", "runtime", "sweep",
-         "long", "rl", "rl_loop", "replay", "robust")
+         "mesh", "long", "rl", "rl_loop", "replay", "robust")
 
 
 def qp_stand(cs, device):
@@ -101,6 +102,7 @@ def main(argv=None):
         "runtime": lambda: [line for preset in cs.RUNTIME for line in
                             cs.runtime_phase(preset, device, card)[1]],
         "sweep": lambda: cs.sweep_phase(args.seed + 8, device, card)[1],
+        "mesh": lambda: cs.mesh_phase(args.seed + 12, device, card)[1],
         "long": lambda: cs.long_horizon_phase(args.seed + 9, device,
                                               card)[1],
         "rl": lambda: cs.rl_phase(args.seed + 10, device, card)[1],

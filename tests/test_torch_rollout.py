@@ -129,8 +129,9 @@ def test_trot_rollout_walks_f32():
 def test_port_imports_no_jax():
     """In a fresh interpreter, one CPU tick of the port (batched, per
     scenario with the polished dense solve, and at horizon 20 on the
-    stagewise solver) and a small sweep load neither JAX nor the JAX
-    package."""
+    stagewise solver), a small sweep, the same sweep over a world-1 mesh,
+    and the mesh, horizon, viz, roofline and oracle modules load neither
+    JAX nor the JAX package."""
     code = (
         "import sys, torch\n"
         "from go1_qp_mpc_controller_torch.envs import rollout\n"
@@ -149,6 +150,13 @@ def test_port_imports_no_jax():
         "from go1_qp_mpc_controller_torch.parallel import sweep\n"
         "sweep.make_sweep_fn('cpu', 0.0025, short)(\n"
         "    sweep.random_scenarios(0, 2, device='cpu'))\n"
+        "from go1_qp_mpc_controller_torch.parallel import horizon, mesh\n"
+        "mesh.init_distributed('cpu')\n"
+        "sweep.make_sweep_fn(mesh.make_mesh(1), 0.0025, short)(\n"
+        "    sweep.random_scenarios(0, 2, device='cpu'))\n"
+        "torch.distributed.destroy_process_group()\n"
+        "from go1_qp_mpc_controller_torch.utils import roofline, viz\n"
+        "from go1_qp_mpc_controller_torch.compat import oracle\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k.startswith('go1_qp_mpc_controller_tpu')]\n"
         "assert not bad, bad\n"

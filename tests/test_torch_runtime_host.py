@@ -463,18 +463,22 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert (tmp_path / "trace.json").stat().st_size > 0
 
 
-def test_main_rollout_runs_and_refuses_what_is_not_ported(capsys):
+def test_main_rollout_runs_and_refuses_what_is_not_ported(capsys,
+                                                         tmp_path):
+    """``rollout`` prints the JAX CLI's keys, and ``--trace`` / ``--plot``
+    (ported) write their files; what stays refused is what the JAX CLI
+    refuses: an mpc axis that does not divide the world (one process)."""
     t_main.main(["--device", "cpu", "--preset", "gazebo_qp", "rollout",
                  "--steps", "120", "--no-ekf"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(out) == {"final_pos", "mean_vx", "height_range",
                         "max_tilt_rad"}
     assert np.isfinite(out["final_pos"]).all()
-    for extra in (["--trace", "x.npz"], ["--plot", "x.png"]):
-        with pytest.raises(NotImplementedError):
-            t_main.main(["--device", "cpu", "rollout", "--steps", "2"]
-                        + extra)
-    with pytest.raises(NotImplementedError):
+    npz, png = tmp_path / "x.npz", tmp_path / "x.png"
+    t_main.main(["--device", "cpu", "rollout", "--steps", "2", "--trace",
+                 str(npz), "--plot", str(png)])
+    assert npz.stat().st_size > 0 and png.stat().st_size > 0
+    with pytest.raises(ValueError, match="not divisible by mpc=2"):
         t_main.main(["--device", "cpu", "sweep", "--batch", "2",
                      "--mpc-parallel", "2"])
 
