@@ -13,9 +13,13 @@ just after it:
 - the dense warm-tick chain: fresh cold solves (``admm.mpc_solve_cold``,
   K1, K6), then 40 warm ticks of ``admm_iterations.mpc_solve_warm_batch``
   (K3, K6) at batch 4096;
-- one robot (``envs.rollout.rollout``, batch 1) trotting with the EKF and
-  polished cold solves (K1, K2, K3, K6), then standing on the balance QP
-  (K3);
+- one robot (``envs.rollout.rollout``, batch 1, each tick replayed from
+  captured CUDA graphs) trotting with the EKF and polished cold solves
+  (K1, K2, K3, K6), then standing on the balance QP (K3);
+- the captured steps: the same one-robot ticks (a health re-solve
+  forced) through the eager composition of ``rollout.tick_parts`` and
+  through the captured graphs, held equal bit for bit, in launches per
+  kernel and route, and in route sequence;
 - the batched tick with the polished cold settings (K1, K2, K3, K6);
 - K5's own entry (``ops/schulz_balanced.py``; in the JAX package only
   tests call it);
@@ -23,7 +27,7 @@ just after it:
   against the simulated 1 kHz feed on the card, with the estimator thread
   (K4 once a sensor frame) and a scripted joystick session, on
   ``hardware_qp`` (the balance QP, K3 at n = 12) and ``gazebo_mpc`` (K1,
-  K3, K6);
+  K3, K6), every step a graph replay;
 - the scenario sweep (``parallel/sweep.py``): ``main.py sweep``'s program
   at batch 4096 (the dense polished route: K3, K6), then the fused cold
   route (K1, K6) through ``run_chunked`` over 32 chunks of 4096;
@@ -264,6 +268,42 @@ def host_text(a, b):
     return "host: " + "; ".join(parts)
 
 
+class GcPauses:
+    """The garbage collector's collections while active (a ``with``
+    block): each one's generation and pause, and the tracked objects at
+    the start."""
+
+    def __init__(self):
+        self.pauses = []
+        self.objects = 0
+        self._t0 = None
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.pauses.append((info["generation"],
+                                time.perf_counter() - self._t0))
+            self._t0 = None
+
+    def __enter__(self):
+        import gc
+        self.objects = len(gc.get_objects())
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+        gc.callbacks.remove(self)
+
+    def text(self):
+        ms = [t * 1e3 for _, t in self.pauses]
+        full = sum(1 for g, _ in self.pauses if g == 2)
+        return (f"gc: {len(ms)} collections ({full} full), pause max "
+                f"{max(ms, default=0.0):.3f} ms, total {sum(ms):.3f} ms; "
+                f"{self.objects} tracked objects")
+
+
 def kernel_modules():
     """{kernel record name: its wrapper module (launch counter)}."""
     from go1_qp_mpc_controller_torch.ops import _build
@@ -271,8 +311,13 @@ def kernel_modules():
 
 
 def reset_counts():
+    """Every launch counter, and the sums of the captures' warm-up runs
+    and of the graph replays (``graphs.warmup_launches``,
+    ``replayed_launches``), to 0."""
+    from go1_qp_mpc_controller_torch.utils import graphs
     for module in kernel_modules().values():
         module.reset_launches()
+    graphs.reset_records()
 
 
 def read_counts():
@@ -286,6 +331,36 @@ def read_counts():
         counts[f"{name}_routes"] = {
             r: c for r, c in modules[name].route_launches.items() if c}
     return counts
+
+
+def replayed_counts():
+    """The launches of graph replays since the last :func:`reset_counts`,
+    in ``read_counts()``'s form."""
+    from go1_qp_mpc_controller_torch.utils import graphs
+    counts = {name: 0 for name in kernel_modules()}
+    counts.update(kkt_schulz_routes={}, schulz_batch_routes={})
+    for name, (n, routes) in graphs.replayed_launches.items():
+        counts[name] = n
+        if f"{name}_routes" in counts:
+            counts[f"{name}_routes"] = {r: c for r, c in routes.items() if c}
+    return counts
+
+
+def tick_counts(counts):
+    """``read_counts()``'s ``counts`` less the launches of the captures'
+    eager warm-up runs since the last :func:`reset_counts` (a path that
+    captures a step launches its kernels a few times before its first
+    tick): the launches of the path's own ticks."""
+    from go1_qp_mpc_controller_torch.utils import graphs
+    out = {k: dict(v) if isinstance(v, dict) else v
+           for k, v in counts.items()}
+    for name, (n, routes) in graphs.warmup_launches.items():
+        out[name] -= n
+        for r, c in routes.items():
+            out[f"{name}_routes"][r] -= c
+            if not out[f"{name}_routes"][r]:
+                del out[f"{name}_routes"][r]
+    return out
 
 
 def add_counts(total, counts):
@@ -1355,6 +1430,22 @@ def _pct(walls, q):
     return float(np.percentile(np.asarray(walls) * 1e3, q))
 
 
+def capture_cache_line():
+    """What the one-robot capture cache (``rollout.cached_step``) saw in
+    this process: the static configurations captured, the captures (a
+    configuration captured again had been evicted), the card memory the
+    captures reserved, and how many steps it keeps."""
+    from go1_qp_mpc_controller_torch.envs import rollout
+    caps = list(rollout._CAPTURES.values())
+    n = sum(c for c, _ in caps)
+    mib = [b / 2 ** 20 for _, b in caps]
+    return (f"one-robot capture cache: {len(caps)} configurations, {n} "
+            f"captures ({n - len(caps)} after an eviction), card memory "
+            f"reserved by a capture max {max(mib, default=0.0):.1f} MiB, "
+            f"total {sum(mib):.1f} MiB; {len(rollout._CAPTURED)} kept of at "
+            f"most {rollout._KEEP}")
+
+
 def single_robot_phase(device, card):
     """One robot (``rollout.rollout`` at batch 1, float32): the EKF on,
     polished cold settings (main.py / tests/test_walking.py) with
@@ -1384,6 +1475,8 @@ def single_robot_phase(device, card):
     carry, tr, walls = _robot_ticks(carry, model, params, ROBOT_TICKS, walk,
                                     stats=stats, **mpc_kw)
     mpc_counts = read_counts()
+    mpc_ticks = tick_counts(mpc_counts)
+    mpc_replayed = replayed_counts()
     # where a trot tick's time goes: half a gait cycle more, profiled
     profile = profile_lines(lambda: _robot_ticks(
         carry, model, params, ROBOT_PROFILE_TICKS,
@@ -1401,6 +1494,8 @@ def single_robot_phase(device, card):
                                    solver_type=controller.QP,
                                    estimate=False, **kw)
     qp_counts = read_counts()
+    qp_ticks = tick_counts(qp_counts)
+    qp_replayed = replayed_counts()
     zq_err = float((trq.root_pos[150:, 0, 2] - 0.3).abs().max())
     finite_q = bool(torch.isfinite(trq.root_pos).all())
     checks = {
@@ -1410,25 +1505,31 @@ def single_robot_phase(device, card):
         "mpc_k1_k2_k3_launched": all(mpc_counts[k] > 0 for k in (
             "kkt_schulz", "observe_ekf", "schulz_batch")),
         # every tick ends in at least one ADMM loop on K6
-        "mpc_k6_launches>=ticks": mpc_counts["admm_iterations"]
+        "mpc_k6_launches>=ticks": mpc_ticks["admm_iterations"]
                                   >= ROBOT_TICKS,
-        "mpc_k3_3_per_cold_tick": mpc_counts["schulz_batch"]
+        # the ticks' own launches: the captures' warm-up runs apart
+        "mpc_k3_3_per_cold_tick": mpc_ticks["schulz_batch"]
                                   == 3 * (stats.get("cold", 0)
                                           + stats.get("health", 0)),
         "qp_finite": finite_q, "qp_height_within_0.05": zq_err < 0.05,
-        "qp_k3_ticks_x_segments": qp_counts["schulz_batch"]
-                                  == QP_TICKS * settings.segments}
+        "qp_k3_ticks_x_segments": qp_ticks["schulz_batch"]
+                                  == QP_TICKS * settings.segments,
+        # every tick's launch came from a graph replay
+        "mpc_ticks_launch_only_in_replays": mpc_ticks == mpc_replayed,
+        "qp_ticks_launch_only_in_replays": qp_ticks == qp_replayed}
     lines = [
         f"one robot (rollout, batch 1, EKF on, polished cold solves): "
         f"{ROBOT_STAND_TICKS} standing then trot 0.25 m/s to {ROBOT_TICKS} "
         f"ticks; tick wall time p50 {_pct(walls, 50):.3f} ms, p99 "
         f"{_pct(walls, 99):.3f} ms, max {_pct(walls, 100):.3f} ms "
-        f"(synchronized each tick) on {card}; routes {json.dumps(stats)}; "
-        f"launches {json.dumps(mpc_counts)}; mean vx over ticks 400+ "
+        f"(synchronized each tick; captured steps) on {card}; routes "
+        f"{json.dumps(stats)}; launches {json.dumps(mpc_counts)}, of them "
+        f"the ticks' {json.dumps(mpc_ticks)}; mean vx over ticks 400+ "
         f"{vx:.4f} m/s, max |z - 0.3| from tick 200 {z_err:.4f} m",
         f"one robot, balance-QP stand: {QP_TICKS} ticks, tick wall time p50 "
         f"{_pct(walls_q, 50):.3f} ms, p99 {_pct(walls_q, 99):.3f} ms; "
-        f"launches {json.dumps(qp_counts)}; max |z - 0.3| from tick 150 "
+        f"launches {json.dumps(qp_counts)}, of them the ticks' "
+        f"{json.dumps(qp_ticks)}; max |z - 0.3| from tick 150 "
         f"{zq_err:.4f} m"]
     lines += ["one robot " + line for line in profile]
     lines += [
@@ -1436,6 +1537,151 @@ def single_robot_phase(device, card):
         f"{'PASS' if all(checks.values()) else 'FAIL'}"]
     return ({"robot_mpc": mpc_counts, "robot_qp": qp_counts}, lines,
             all(checks.values()))
+
+
+# the captured steps: one robot's ticks two ways from one batch-1 carry,
+# the eager composition of ``rollout.tick_parts`` (the functions the card
+# captures, called directly) and ``rollout.rollout`` (the captured steps):
+# CAPTURED_TICKS MPC ticks, standing to CAPTURED_WALK_AT and then trotting
+# (the warm, window and cold routes), the carried KKT inverse negated at
+# the standing warm tick CAPTURED_POISON_AT (the health re-solve), and
+# CAPTURED_TICKS balance-QP ticks; then CAPTURED_PROFILE_TICKS more
+# captured MPC ticks under the profiler
+CAPTURED_TICKS = 400
+CAPTURED_WALK_AT = 100
+CAPTURED_POISON_AT = 90
+CAPTURED_PROFILE_TICKS = 60
+
+
+def captured_steps_phase(device, card):
+    """One robot (batch 1, float32, polished cold settings, the EKF on for
+    the MPC) through the eager composition of ``rollout.tick_parts`` and
+    through ``rollout.rollout``'s captured steps, tick by tick (a sync
+    each tick). Gates, per solver: every trace record and the final carry
+    (torques, GRFs, the warm carry) equal bit for bit, the launches equal
+    per kernel and per route (the captures' warm-up runs apart) and all
+    of the captured ticks' launches made by graph replays, the route
+    sequences equal, the MPC's visiting warm, window, cold and the health
+    re-solve, and the captured tick's p50 below the eager one.
+    Returns (counts by path, lines, passed)."""
+    import statistics
+    import torch
+    from go1_qp_mpc_controller_torch.ctrl import controller
+    from go1_qp_mpc_controller_torch.envs import rollout
+    from go1_qp_mpc_controller_torch.models import types
+    from go1_qp_mpc_controller_torch.ops import admm
+    from go1_qp_mpc_controller_torch.utils import graphs
+    from torch.utils import _pytree as pytree
+
+    f32 = torch.float32
+    model = types.default_robot_model(f32, device)
+    params = types.default_ctrl_params(f32, device)
+    settings = admm.ADMMSettings(**POLISHED)
+    walk = _walk_command(CAPTURED_WALK_AT, 0.25)
+
+    def mpc_command(tick, ctrl):
+        ctrl = walk(tick)(tick, ctrl)
+        if tick == CAPTURED_POISON_AT:
+            ctrl = ctrl._replace(qp_warm_minv=-ctrl.qp_warm_minv)
+        return ctrl
+
+    def eager(parts, command):
+        carry = rollout.init_carry(model, params, 1, dtype=f32,
+                                   device=device)
+        records, routes, walls = [], [], []
+        for tick in range(CAPTURED_TICKS):
+            t0 = time.perf_counter()
+            if command is not None:
+                carry = carry._replace(ctrl=command(tick, carry.ctrl))
+            taken, (carry, record, *_) = graphs.compose(
+                parts, carry, model, params)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            records.append(record)
+            routes.append(taken)
+        trace = type(records[0])(*[torch.stack(leaves)
+                                   for leaves in zip(*records)])
+        return carry, trace, routes, walls
+
+    def captured(kw, command):
+        carry = rollout.init_carry(model, params, 1, dtype=f32,
+                                   device=device)
+        records, routes, walls = [], [], []
+        for tick in range(CAPTURED_TICKS):
+            stats = {}
+            t0 = time.perf_counter()
+            carry, tr = rollout.rollout(
+                carry, model, params, 1, 0.002, stats=stats,
+                command_fn=None if command is None else (
+                    lambda _, c, t=tick: command(t, c)), **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            records.append(tr)
+            routes.append(list(stats) or ["qp"])
+        trace = type(records[0])(*[torch.cat(leaves)
+                                   for leaves in zip(*records)])
+        return carry, trace, routes, walls
+
+    counts_by_path, lines, checks = {}, [], {}
+    for name, solver, estimate, command in (
+            ("mpc", controller.MPC, True, mpc_command),
+            ("qp", controller.QP, False, None)):
+        kw = dict(solver_type=solver, settings=settings, estimate=estimate,
+                  use_terrain_adapt=False,
+                  warm_settings=controller.WARM_SETTINGS)
+        parts = rollout.tick_parts(0.002, solver, settings, estimate, False,
+                                   controller.WARM_SETTINGS)
+        reset_counts()
+        e_carry, e_trace, e_routes, e_walls = eager(parts, command)
+        e_counts = read_counts()
+        reset_counts()
+        replays0 = graphs.replays
+        c_carry, c_trace, c_routes, c_walls = captured(kw, command)
+        replays = graphs.replays - replays0
+        c_all = read_counts()
+        c_counts = tick_counts(c_all)
+        replayed = replayed_counts()
+        counts_by_path[f"captured_{name}"] = c_all
+        unequal = [i for i, (a, b) in enumerate(zip(
+            pytree.tree_leaves((e_trace, e_carry)),
+            pytree.tree_leaves((c_trace, c_carry)))) if not same_bits(a, b)]
+        seen = sorted({r for taken in c_routes for r in taken})
+        # the route read, and the health read where the parts recheck
+        reads = sum(0 if parts.pre is None else 1 + (taken[0] in parts.recheck)
+                    for taken in c_routes)
+        med = {w: statistics.median(t) * 1e3 for w, t in (
+            ("eager", e_walls), ("captured", c_walls))}
+        checks.update({
+            f"{name}_bits_equal": not unequal,
+            f"{name}_launches_equal": e_counts == c_counts,
+            # no counted kernel of a captured tick ran outside a replay
+            f"{name}_every_tick_launch_replayed": c_counts == replayed,
+            f"{name}_routes_equal": e_routes == c_routes,
+            f"{name}_captured_p50<eager_p50": med["captured"] < med["eager"]})
+        if solver == controller.MPC:
+            checks["mpc_routes_warm_window_cold_health"] = {
+                "warm", "window", "cold", "health"} <= set(seen)
+        lines.append(
+            f"captured steps {name}: {CAPTURED_TICKS} ticks each way on "
+            f"{card}; tick wall time eager p50 {_pct(e_walls, 50):.3f} ms, "
+            f"p99 {_pct(e_walls, 99):.3f} ms; captured p50 "
+            f"{_pct(c_walls, 50):.3f} ms, p99 {_pct(c_walls, 99):.3f} ms; "
+            f"{replays / CAPTURED_TICKS:.3f} replays and "
+            f"{reads / CAPTURED_TICKS:.3f} host reads a tick (route + "
+            f"health); routes seen {seen}; trace and carry leaves that "
+            f"differ {unequal}; launches eager {json.dumps(e_counts)}, "
+            f"captured {json.dumps(c_all)} (ticks "
+            f"{json.dumps(c_counts)})")
+        if solver == controller.MPC:
+            carry = c_carry
+            profile = profile_lines(lambda: _robot_ticks(
+                carry, model, params, CAPTURED_PROFILE_TICKS,
+                lambda tick: walk(CAPTURED_TICKS + tick), **kw),
+                CAPTURED_PROFILE_TICKS, _pct(c_walls, 50))
+            lines += ["captured steps mpc " + line for line in profile]
+    lines.append(f"captured steps checks {json.dumps(checks)} "
+                 f"{'PASS' if all(checks.values()) else 'FAIL'}")
+    return counts_by_path, lines, all(checks.values())
 
 
 def polished_batched_phase(batch, seed, device, card):
@@ -2351,7 +2597,7 @@ def k4_live_line(s_mat):
 def k4_live_check(est, bridge):
     """:func:`k4_live_line` on the estimator thread's live filter: its
     last estimate and the feed's last frame, through the estimator's
-    predict graph."""
+    predict half (run eagerly: it launches no counted kernel)."""
     import numpy as np
 
     _, s = bridge.read_sensors()
@@ -2359,8 +2605,9 @@ def k4_live_check(est, bridge):
     frame = est._frame(np.concatenate([
         s["quat"], s["acc"], s["gyro"], s["joint_pos"], s["joint_vel"],
         s["foot_force"]]), est.period)
-    return k4_live_line(
-        est._predict(x, p, frame, est._mode(est.movement_mode)).s_mat)
+    return k4_live_line(est.predict(
+        x, p, *est._split(frame), est._mode(est.movement_mode),
+        est.period).s_mat)
 
 
 def k5_phase(device, reps):
@@ -2459,19 +2706,28 @@ def k5_phase(device, reps):
 
 # the runtime path: main.py loop's dual-cadence loop against the simulated
 # feed with the estimator thread and a scripted joystick session, per preset
-# {preset: (time scale, wall seconds at most)}: wall period = sim period /
-# time scale. The four threads share one GIL and the GRF solve is hundreds
-# of host dispatches: ~67 ms alone for the balance QP and ~25 ms for the
-# MPC on an H100 host, the graph-replayed feeder, estimator and fast steps
-# ~3 ms more per 2 ms of sim time (scripts/runtime_gil_probe.py). At 0.02
-# (a 100 ms GRF period) the MPC keeps up, but the balance QP does not: its
-# solve took ~137 ms against the 100 ms period and overran every tick, so
-# hardware_qp runs at 0.01 (a 200 ms period), where it took ~84 ms and
-# overran none of 76 ticks. At 0.05 the MPC solve overran its 40 ms period
-# and the starved stand diverged (scripts/runtime_ladder.py).
-# The runs are long enough for ~75 solves before the LB exit at three
-# quarters of the run (the gates ask for more than 50).
-RUNTIME = {"hardware_qp": (0.01, 20.0), "gazebo_mpc": (0.02, 10.0)}
+# {preset: time scale}: wall period = sim period / time scale. Each is the
+# largest scale of scripts/runtime_ladder.py --scales 1,0.5,0.25,0.1,0.05
+# at which the preset, its GRF solve replayed from graphs, passed every
+# gate in every run on an H100 with grf_ms p99 under half the wall period
+# in all runs but one. hardware_qp 0.05: at 0.1 its p99 went over 10 ms in
+# four of ten ladders (the replayed balance QP is device-bound, ~7 ms for
+# the 4 x 50 iterations of its plain ADMM loop); at 0.05 it went over its
+# 20 ms once, 21.528 ms in a run of this script on a slow host (every loop
+# stalled ~20 ms). gazebo_mpc 0.05: at 0.1 it stayed under its 10 ms in
+# eight of nine ladders, but went over in two runs of this script (p99
+# 10.996 and 14.756 ms) and in two of eight runs of
+# scripts/runtime_tail_probe.py, sporadic tails that neither the garbage
+# collector's pauses, the heap's size nor a profiler session explain. The
+# fast loop's, the estimator's and the feeder's host work under one GIL
+# hold both below scale 1
+RUNTIME = {"hardware_qp": 0.05, "gazebo_mpc": 0.05}
+# the session's length in fast ticks at any scale (~75 GRF solves before
+# the LB exit at three quarters; the gates ask for more than 50). The
+# simulated feed holds an all-stance plant (feet pinned, runtime/feeder.py,
+# as the JAX package's): a walk of ~75-100 ticks in it diverges, on the
+# eager loop too, so the session keeps its quarter of walking short
+RUNTIME_TICKS = 100
 # the GRF loop keeps up: at most this share of its ticks overran
 GRF_OVERRUN_SHARE = 0.1
 RUNTIME_DT = 0.002            # the fast and GRF loops' sim period
@@ -2485,8 +2741,9 @@ TAU_CEILING = 35.55           # the bridge's largest joint-class ceiling
 def runtime_phase(preset, device, card, time_scale=None, duration=None):
     """``ControlLoop.run_dual`` on ``preset`` against a ``SimFeeder`` on
     the card, with the estimator thread (``estimate_in_feed``) and a
-    scripted joystick session, at ``time_scale`` for at most ``duration``
-    wall seconds (defaults: ``RUNTIME[preset]``).
+    scripted joystick session, at ``time_scale`` (default
+    ``RUNTIME[preset]``) for at most ``duration`` wall seconds (default:
+    ``RUNTIME_TICKS`` fast periods).
     The launch counters are zeroed after the warm-up (which makes every
     first launch and the estimator's first frame) and read after the loop.
     Gates: the JAX tests' invariants (tests/test_joystick_loop.py,
@@ -2504,8 +2761,8 @@ def runtime_phase(preset, device, card, time_scale=None, duration=None):
 
     model, params, static = presets.load_preset(preset, torch.float32,
                                                 device=device)
-    time_scale = time_scale or RUNTIME[preset][0]
-    duration = duration or RUNTIME[preset][1]
+    time_scale = time_scale or RUNTIME[preset]
+    duration = duration or RUNTIME_TICKS * RUNTIME_DT / time_scale
     ticks = int(duration * time_scale / RUNTIME_DT)
 
     def sample(velx=0.0, a=False, lb=False):
@@ -2532,13 +2789,15 @@ def runtime_phase(preset, device, card, time_scale=None, duration=None):
         cl.warmup(dual=True)
         reset_counts()
         host0 = host_sample()
-        feeder.start(duration_s=duration + 30.0)
-        t0 = time.perf_counter()
-        n = cl.run_dual(duration_s=duration)
-        wall = time.perf_counter() - t0
-        feeder.stop()
+        with GcPauses() as pauses:
+            feeder.start(duration_s=duration + 30.0)
+            t0 = time.perf_counter()
+            n = cl.run_dual(duration_s=duration)
+            wall = time.perf_counter() - t0
+            feeder.stop()
         host1 = host_sample()
         counts = read_counts()
+        replayed = replayed_counts()
         if feeder.error is not None:
             raise RuntimeError("the sensor feed failed") from feeder.error
         # after the path's counts were read: K4 on the live filter
@@ -2576,7 +2835,9 @@ def runtime_phase(preset, device, card, time_scale=None, duration=None):
         "walked": walked,
         "stood_after_walking": walked and 0.0 in modes[modes.index(1.0):],
         "lb_exit_ended_the_loop": wall < duration,
-        "no_k2": counts["observe_ekf"] == 0}
+        "no_k2": counts["observe_ekf"] == 0,
+        # no counted kernel of the running loops ran outside a replay
+        "every_launch_replayed": counts == replayed}
     lines = [
         f"runtime {preset}: ControlLoop.run_dual + SimFeeder + estimator "
         f"thread + joystick session (walk at fast tick {walk}, stand at "
@@ -2590,7 +2851,7 @@ def runtime_phase(preset, device, card, time_scale=None, duration=None):
         f"estimated root {np.round(est_root, 4).tolist()}, final max|tau| "
         f"{tau:.3f} (ceiling {ceiling:.3f}); launches {json.dumps(counts)}",
         f"runtime {preset}: {live_line}",
-        f"runtime {preset} {host_text(host0, host1)}",
+        f"runtime {preset} {host_text(host0, host1)}; {pauses.text()}",
         f"runtime {preset} checks {json.dumps(checks)} "
         f"{'PASS' if all(checks.values()) else 'FAIL'}"]
     return counts, lines, all(checks.values())
@@ -2899,8 +3160,9 @@ def replay_phase(device, card):
     """``envs/replay.py`` on the card. A one-robot gazebo_mpc trot
     (``rollout.rollout``, batch 1, the EKF and polished cold solves,
     ``REPLAY_TICKS`` ticks, walking at ``REPLAY_VX`` from tick
-    ``REPLAY_WALK_AT``) is recorded, its sensor stream read off
-    ``srb_sim.read_sensors``; ``replay_rollout`` replays the stream from
+    ``REPLAY_WALK_AT``; one-tick calls) is recorded, its sensor stream
+    read off the carry before each tick with ``srb_sim.read_sensors``;
+    ``replay_rollout`` replays the stream from
     the same initial state (the command applied at the walk tick, as the
     rollout's ``command_fn`` does), with the launch counters zeroed before
     and read after. Then ``replay_joint_signal`` on a
@@ -2930,22 +3192,20 @@ def replay_phase(device, card):
             movement_mode=torch.full_like(ctrl.movement_mode, int(walk)),
             root_lin_vel_d=vel)
 
-    recorded = []
-    read_sensors = srb_sim.read_sensors
-
-    def recording(*args, **kwargs):
-        sensors = read_sensors(*args, **kwargs)
-        recorded.append(sensors)
-        return sensors
-
-    srb_sim.read_sensors = recording
-    try:
-        _, tr = rollout.rollout(
-            carry, model, params, REPLAY_TICKS, 0.002,
-            command_fn=lambda i, c: walking(c, i >= REPLAY_WALK_AT),
+    # the rollout's sensor read is inside its captured tick: the stream is
+    # read off the carry before each one-tick call, with the tick's command
+    # applied first, as the rollout's command_fn would
+    recorded, records = [], []
+    for i in range(REPLAY_TICKS):
+        carry = carry._replace(ctrl=walking(carry.ctrl, i >= REPLAY_WALK_AT))
+        recorded.append(srb_sim.read_sensors(
+            carry.sim, model, carry.ctrl.contacts, carry.stance_forces_z,
+            0.002))
+        carry, tr_i = rollout.rollout(
+            carry, model, params, 1, 0.002,
             warm_settings=controller.WARM_SETTINGS, **kw)
-    finally:
-        srb_sim.read_sensors = read_sensors
+        records.append(tr_i)
+    tr = type(records[0])(*[torch.cat(leaves) for leaves in zip(*records)])
     log = replay.SensorLog(*[torch.stack(leaves)
                              for leaves in zip(*recorded)])
     part = lambda a, b: replay.SensorLog(*[leaf[a:b] for leaf in log])
@@ -3241,6 +3501,7 @@ def main(argv=None):
 
     paths = [("main path", main_path), ("dense chain", dense_chain),
              ("one robot", lambda: single_robot_phase(device, card)),
+             ("captured steps", lambda: captured_steps_phase(device, card)),
              ("polished batched", polished), ("K5", k5_entry),
              ("sweep", lambda: sweep_phase(args.seed + 8, device, card)),
              ("mesh", lambda: mesh_phase(args.seed + 12, device, card)),
@@ -3275,6 +3536,7 @@ def main(argv=None):
             print(f"FAIL {name} phase raised", flush=True)
             failed.append(f"{name} (raised)")
             ok = False
+    print(capture_cache_line(), flush=True)
     routes = {}
     for name, label in (("kkt_schulz", "K1"), ("schulz_batch", "K3")):
         routes[name] = {path: counts[f"{name}_routes"]

@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from go1_qp_mpc_controller_torch.config import params as P
+from go1_qp_mpc_controller_torch.utils.device import const
 
 
 class JoyState(NamedTuple):
@@ -103,8 +104,8 @@ def is_terminal_state(joint_pos):
     Args:
       joint_pos: (B, 12) joint angles, (hip, thigh, calf) x 4 legs.
     """
-    limits = torch.tensor(P.JOINT_POS_LIMITS, dtype=joint_pos.dtype,
-                          device=joint_pos.device)               # (3, 2)
+    limits = const(tuple(v for row in P.JOINT_POS_LIMITS for v in row),
+                   joint_pos.dtype, joint_pos.device).reshape(3, 2)
     q = joint_pos.reshape(-1, P.NUM_LEG, 3)
     return torch.any(((q <= limits[:, 0]) | (q >= limits[:, 1])).reshape(
         q.shape[0], -1), dim=-1)

@@ -24,7 +24,12 @@ solve, the receding variant and the balance QP reach K3, through
 The JAX package routes with ``lax.cond`` / ``lax.switch`` on device
 predicates; here the routing is host branching, so a tick waits on the
 device at most twice (see :func:`compute_grf_mpc_batched` and
-:func:`compute_grf_mpc`).
+:func:`compute_grf_mpc`). At batch 1 the per-scenario tick comes in
+fixed-shape parts (:func:`grf_mpc_pre`, :func:`grf_mpc_branches`,
+:func:`grf_mpc_finish`; :func:`grf_parts`, :func:`tick_parts`), which the
+one-robot paths capture as CUDA graphs, one per route
+(``utils/graphs.RoutedStep``); :func:`grf_routing` is the one routing
+rule of both.
 """
 
 from typing import NamedTuple
@@ -33,9 +38,9 @@ import torch
 
 from go1_qp_mpc_controller_torch.config import params as P
 from go1_qp_mpc_controller_torch.ctrl import gait, swing, terrain, torque
-from go1_qp_mpc_controller_torch.models import kinematics, srb
+from go1_qp_mpc_controller_torch.models import kinematics, srb, types
 from go1_qp_mpc_controller_torch.ops import admm, observe_ekf, qp, stagewise
-from go1_qp_mpc_controller_torch.utils import rotations
+from go1_qp_mpc_controller_torch.utils import graphs, rotations
 from go1_qp_mpc_controller_torch.utils.device import pin_f32_matmuls
 
 # Schedules and routing thresholds, copied from the JAX package's
@@ -312,6 +317,74 @@ def _scatter(full, idx, sub):
     return out
 
 
+# the per-scenario MPC routes by code (:func:`grf_mpc_pre`'s ``route``)
+ROUTES = ("warm", "window", "cold")
+
+
+class GrfPre(NamedTuple):
+    """What every route of :func:`compute_grf_mpc` reads (batched)."""
+    states: types.CtrlState      # after terrain adaptation
+    lazy: srb.LazyCondensedQP
+    warm_in: admm.WarmState      # the carry after flip repair
+    route: torch.Tensor          # (B,) int64 index into ROUTES
+
+
+def grf_mpc_pre(states, model, params, use_terrain_adapt=True):
+    """The part of :func:`compute_grf_mpc` before its routing: the lazy
+    condensation, the transition test and each scenario's route code."""
+    states, lazy = _condensed(states, model, params, use_terrain_adapt)
+    warm_in, transition, window = _transition_test(states, lazy, params)
+    route = torch.where(transition, 2, torch.where(window, 1, 0))
+    return GrfPre(states, lazy, warm_in, route)
+
+
+def grf_mpc_branches(settings, warm_settings, window_settings=None):
+    """The solves of :func:`compute_grf_mpc`, {name: fn(GrfPre) -> (x_sol,
+    WarmState, bad)}, each on the pre's whole batch: "warm", "window" and
+    "cold" (:data:`ROUTES`) and "health", the cold re-solve of a
+    health-rejected carry. With ``warm_settings`` None the only one is
+    "plain": the cold ``settings`` solve from the carried primal / dual.
+    ``bad`` is the warm and window solves' health flag (all False from
+    the others)."""
+    if warm_settings is None:
+        def plain(pre):
+            dense = srb.CondensedQP(hessian=srb.lazy_hessian(pre.lazy),
+                                    gradient=pre.lazy.gradient,
+                                    lb=pre.lazy.lb, ub=pre.lazy.ub)
+            sol = admm.mpc_solve(dense, settings,
+                                 warm_x=pre.states.qp_warm_x,
+                                 warm_y=pre.states.qp_warm_y)
+            warm_out = admm.WarmState(x=sol.x, y=sol.y,
+                                      rho=pre.states.qp_warm_rho,
+                                      minv=pre.states.qp_warm_minv)
+            return sol.x, warm_out, torch.zeros_like(sol.rho,
+                                                     dtype=torch.bool)
+        return {"plain": plain}
+    fns = dict(zip(("cold", "warm", "window"),
+                   _grf_branches(settings, warm_settings, window_settings)))
+
+    def health(lz, warm):
+        # a health-rejected carry is garbage by construction: its cold
+        # re-solve starts neutral
+        return fns["cold"](lz, warm._replace(x=torch.zeros_like(warm.x),
+                                             y=torch.zeros_like(warm.y)))
+
+    fns["health"] = health
+    return {name: (lambda pre, fn=fn: fn(pre.lazy, pre.warm_in))
+            for name, fn in fns.items()}
+
+
+def grf_mpc_finish(pre, x_sol, warm_out):
+    """The tail of :func:`compute_grf_mpc` after a route's solve."""
+    return _finish_grf(pre.states, x_sol, warm_out, pre.lazy.gradient)
+
+
+def _sub_pre(pre, idx):
+    """The scenarios ``idx`` of a GrfPre, for the routes' solves."""
+    return pre._replace(lazy=_take(pre.lazy, idx),
+                        warm_in=_take(pre.warm_in, idx))
+
+
 def compute_grf_mpc(states, model, params, settings=admm.ADMMSettings(),
                     use_terrain_adapt=True, warm_settings=WARM_SETTINGS,
                     receding_horizon=False, warm_mode="auto",
@@ -326,11 +399,14 @@ def compute_grf_mpc(states, model, params, settings=admm.ADMMSettings(),
     takes the long warm segment. A warm or window result that fails the
     residual health gate is re-solved cold from a neutral start.
 
+    The composition of :func:`grf_mpc_pre`, the solves of
+    :func:`grf_mpc_branches` and :func:`grf_mpc_finish`, which a caller
+    can capture one by one (``envs/rollout.py``, ``runtime/loop.py``).
     Each scenario of the batch takes exactly the route it would take
-    alone: every route runs on the sub-batch that takes it (gathered, then
-    scattered back). The route vector reaches the host in one
-    device-to-host copy a tick, and the health flags in one more when a
-    warm or window sub-batch ran.
+    alone: a route that not every scenario takes runs on the sub-batch
+    that takes it (gathered, then scattered back). The route vector
+    reaches the host in one device-to-host copy a tick, and the health
+    flags in one more when a warm or window sub-batch ran.
 
     Args:
       warm_settings: settings of the warm tick, or None to solve cold every
@@ -347,72 +423,158 @@ def compute_grf_mpc(states, model, params, settings=admm.ADMMSettings(),
     if receding_horizon:
         _count(stats, "cold", states.contacts.shape[0])
         return _receding(states, model, params, settings, use_terrain_adapt)
-    states, lazy = _condensed(states, model, params, use_terrain_adapt)
-    batch = lazy.gradient.shape[0]
+    names, _, recheck = grf_routing(warm_settings, warm_mode)
+    pre = grf_mpc_pre(states, model, params, use_terrain_adapt)
+    branches = grf_mpc_branches(settings, warm_settings, window_settings)
+    batch = pre.route.shape[0]
+    if len(names) == 1:                     # one route for all
+        x_sol, warm_out, _ = branches[names[0]](pre)
+        _count(stats, "cold" if names[0] == "plain" else names[0], batch)
+        return grf_mpc_finish(pre, x_sol, warm_out)
 
-    if warm_settings is None:
-        dense = srb.CondensedQP(hessian=srb.lazy_hessian(lazy),
-                                gradient=lazy.gradient, lb=lazy.lb,
-                                ub=lazy.ub)
-        sol = admm.mpc_solve(dense, settings, warm_x=states.qp_warm_x,
-                             warm_y=states.qp_warm_y)
-        _count(stats, "cold", batch)
-        warm_out = admm.WarmState(x=sol.x, y=sol.y, rho=states.qp_warm_rho,
-                                  minv=states.qp_warm_minv)
-        return _finish_grf(states, sol.x, warm_out, lazy.gradient)
-
-    warm_in, transition, window = _transition_test(states, lazy, params)
-    branches = dict(zip(("cold", "warm", "window"),
-                        _grf_branches(settings, warm_settings,
-                                      window_settings)))
-    if warm_mode in ("warm", "cold"):
-        x_sol, warm_out, _ = branches[warm_mode](lazy, warm_in)
-        _count(stats, warm_mode, batch)
-        return _finish_grf(states, x_sol, warm_out, lazy.gradient)
-    if warm_mode != "auto":
-        raise ValueError(f"unknown warm_mode {warm_mode!r}")
-
-    # 0 = warm, 1 = window, 2 = cold; device-to-host copy 1 of at most 2
-    route = torch.where(transition, 2, torch.where(window, 1, 0))
-    counts = torch.bincount(route, minlength=3).tolist()
+    # device-to-host copy 1 of at most 2
+    counts = torch.bincount(pre.route, minlength=3).tolist()
     x_sol = warm_out = bad = None
-    for code, name in enumerate(("warm", "window", "cold")):
+    for code, name in enumerate(ROUTES):
         if counts[code] == 0:
             continue
         _count(stats, name, counts[code])
         if counts[code] == batch:
-            x_sol, warm_out, bad = branches[name](lazy, warm_in)
+            x_sol, warm_out, bad = branches[name](pre)
             break
         # the scenarios of this route first, in ascending order
-        idx = torch.sort((route != code).to(torch.int32),
+        idx = torch.sort((pre.route != code).to(torch.int32),
                          stable=True)[1][:counts[code]]
-        x_r, w_r, bad_r = branches[name](_take(lazy, idx),
-                                         _take(warm_in, idx))
+        x_r, w_r, bad_r = branches[name](_sub_pre(pre, idx))
         if x_sol is None:
-            x_sol = torch.empty_like(lazy.gradient)
+            x_sol = torch.empty_like(pre.lazy.gradient)
             warm_out = admm.WarmState(*[torch.empty_like(a)
-                                        for a in warm_in])
-            bad = torch.zeros_like(transition)
+                                        for a in pre.warm_in])
+            bad = torch.zeros_like(pre.route, dtype=torch.bool)
         x_sol[idx] = x_r
         for full, sub in zip(warm_out, w_r):
             full[idx] = sub
         bad[idx] = bad_r
 
-    if counts[0] + counts[1] > 0:
+    checked = [recheck[name] for code, name in enumerate(ROUTES)
+               if counts[code] and name in recheck]
+    if checked:
         n_bad = int(bad.sum())              # device-to-host copy 2
-        if n_bad:
-            # a health-rejected carry is garbage by construction: its
-            # cold re-solve starts neutral
-            _count(stats, "health", n_bad)
-            neutral = warm_in._replace(x=torch.zeros_like(warm_in.x),
-                                       y=torch.zeros_like(warm_in.y))
+        if n_bad == batch:
+            _count(stats, checked[0], n_bad)
+            x_sol, warm_out, _ = branches[checked[0]](pre)
+        elif n_bad:
+            _count(stats, checked[0], n_bad)
             idx = torch.sort((~bad).to(torch.int32), stable=True)[1][:n_bad]
-            x_b, w_b, _ = branches["cold"](_take(lazy, idx),
-                                           _take(neutral, idx))
+            x_b, w_b, _ = branches[checked[0]](_sub_pre(pre, idx))
             x_sol = _scatter(x_sol, idx, x_b)
             warm_out = admm.WarmState(*[_scatter(a, idx, b)
                                         for a, b in zip(warm_out, w_b)])
-    return _finish_grf(states, x_sol, warm_out, lazy.gradient)
+    return grf_mpc_finish(pre, x_sol, warm_out)
+
+
+def read_route(code):
+    """The route of a batch-1 route code (the tick's host read)."""
+    return ROUTES[int(code[0])]
+
+
+def grf_routing(warm_settings, warm_mode="auto"):
+    """How the per-scenario MPC solve routes, as the JAX package's
+    ``control_step`` does: (the branches of :func:`grf_mpc_branches` a tick
+    may take, the read that names a batch-1 route code's branch, the
+    branches whose result takes the health read and the re-solve its flag
+    calls for). In "auto" mode: "warm", "window" and "cold" by the route
+    code, "warm" and "window" rechecked by "health"; a forced ``warm_mode``
+    takes its branch, without ``warm_settings`` "plain", neither
+    rechecked. :func:`compute_grf_mpc` routes by it at any batch,
+    :func:`grf_parts` at batch 1."""
+    if warm_mode not in ("auto", "warm", "cold"):
+        raise ValueError(f"unknown warm_mode {warm_mode!r}")
+    if warm_settings is None or warm_mode != "auto":
+        name = "plain" if warm_settings is None else warm_mode
+        return (name,), (lambda code: name), {}
+    return (ROUTES + ("health",), read_route,
+            {"warm": "health", "window": "health"})
+
+
+def grf_parts(solver_type=MPC, settings=admm.ADMMSettings(),
+              use_terrain_adapt=True, warm_settings=WARM_SETTINGS,
+              warm_mode="auto"):
+    """One robot's GRF solve (:func:`compute_grf_mpc` at horizon 10, or
+    :func:`compute_grf_qp`) as ``graphs.StepParts`` over ``(states, model,
+    params)``, for callers that add their own halves around it: ``pre`` ->
+    (GrfPre, route code), each branch ``fn(pre, params)`` -> (states,
+    bad), routed by :func:`grf_routing`; the balance QP's one part
+    ``fn(states, model, params)`` -> states."""
+    if solver_type == QP:
+        return graphs.StepParts(None, {"qp": lambda states, model, params: (
+            compute_grf_qp(states, model, params, settings))})
+    if solver_type != MPC:
+        raise ValueError(f"unknown solver_type {solver_type!r}")
+    names, read, recheck = grf_routing(warm_settings, warm_mode)
+    solves = grf_mpc_branches(settings, warm_settings)
+
+    def pre(states, model, params):
+        p = grf_mpc_pre(states, model, params, use_terrain_adapt)
+        return p, p.route
+
+    def branch(solve):
+        def run(p, params):
+            x_sol, warm_out, bad = solve(p)
+            return grf_mpc_finish(p, x_sol, warm_out), bad
+        return run
+
+    return graphs.StepParts(pre, {name: branch(solves[name])
+                                  for name in names}, read, recheck)
+
+
+def tick_parts(dt, solver_type=MPC, settings=admm.ADMMSettings(),
+               use_terrain_adapt=True, warm_settings=WARM_SETTINGS,
+               warm_mode="auto"):
+    """:func:`control_step` (horizon 10) of one robot as
+    ``graphs.StepParts`` over ``(states, model, params)``: plan -> swing
+    -> :func:`grf_parts` -> torques; ``pre`` -> (GrfPre, route code),
+    each branch ``fn(pre, params)`` -> (states, bad); the balance QP's one
+    part ``fn(states, model, params)`` -> states. ``dt`` is a float."""
+    grf = grf_parts(solver_type, settings, use_terrain_adapt, warm_settings,
+                    warm_mode)
+
+    def plan(states, model, params):
+        pin_f32_matmuls()
+        states = gait.update_plan(states, params, model)
+        return swing.generate_swing_legs_ctrl(states, params, dt)
+
+    if grf.pre is None:
+        (name, solve), = grf.branches.items()
+        return graphs.StepParts(None, {name: lambda states, model, params: (
+            torque.compute_joint_torques(
+                solve(plan(states, model, params), model, params), params))})
+
+    def branch(solve):
+        def run(p, params):
+            states, bad = solve(p, params)
+            return torque.compute_joint_torques(states, params), bad
+        return run
+
+    return graphs.StepParts(
+        lambda states, model, params: grf.pre(plan(states, model, params),
+                                              model, params),
+        {name: branch(fn) for name, fn in grf.branches.items()},
+        grf.read, grf.recheck)
+
+
+def run_tick(step, args, stats=None):
+    """One batch-1 tick through ``step`` (``graphs.make_step``): a
+    ``graphs.CapturedStep`` of an unrouted tick, or a ``graphs.RoutedStep``
+    (a route read, its branch, and the health read and re-solve where
+    :func:`grf_routing` asks for them). Returns the branch's outputs
+    without the health flag; counts the routes into ``stats``."""
+    if isinstance(step, graphs.CapturedStep):
+        return step(*args)
+    keys, out = step(*args)
+    for key in keys:
+        _count(stats, "cold" if key == "plain" else key)
+    return out[:-1]
 
 
 def compute_grf_mpc_stagewise(states, model, params,

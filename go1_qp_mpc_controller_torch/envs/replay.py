@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from go1_qp_mpc_controller_torch.ctrl import controller
-from go1_qp_mpc_controller_torch.envs import srb_sim
+from go1_qp_mpc_controller_torch.envs import rollout, srb_sim
 from go1_qp_mpc_controller_torch.ops import admm
 from go1_qp_mpc_controller_torch.utils import graphs
 from go1_qp_mpc_controller_torch.utils.device import resolve_device
@@ -49,11 +49,45 @@ def sensor_log_from_arrays(dtype=torch.float32, device=None, **kw):
         device=device, dtype=dtype) for k, v in kw.items()})
 
 
+def replay_parts(dt, solver_type=controller.MPC,
+                 settings=admm.ADMMSettings(), use_terrain_adapt=True,
+                 estimate=True):
+    """:func:`replay_rollout`'s tick as ``graphs.StepParts`` over
+    ``(state, sensors, model, params)``: ``controller.tick_parts`` with the
+    sensor update before its ``pre``; each branch returns (state, bad),
+    the balance QP's one part (state,). ``dt`` is a float."""
+    ctrl = controller.tick_parts(dt, solver_type, settings,
+                                 use_terrain_adapt)
+
+    def sense(state, sensors, model):
+        return controller.sensor_update(state, model, sensors, dt,
+                                        estimate=estimate)
+
+    if ctrl.pre is None:
+        (name, fn), = ctrl.branches.items()
+
+        def tick(state, sensors, model, params):
+            return (fn(sense(state, sensors, model), model, params),)
+        return graphs.StepParts(None, {name: tick})
+
+    def pre(state, sensors, model, params):
+        return ctrl.pre(sense(state, sensors, model), model, params)
+
+    return ctrl._replace(pre=pre, branches={
+        name: (lambda state, sensors, model, params, p, fn=fn: fn(p, params))
+        for name, fn in ctrl.branches.items()})
+
+
 def replay_rollout(ctrl_state, model, params, log, dt,
                    solver_type=controller.MPC,
                    settings=admm.ADMMSettings(), use_terrain_adapt=True,
                    estimate=True):
     """Run the controller over a recorded sensor stream.
+
+    At batch 1 each tick is :func:`replay_parts`' composition, captured on
+    the card as ``rollout.rollout``'s tick is (the same controller parts,
+    kept by static configuration and shared: not thread-safe); a larger
+    batch runs the eager tick.
 
     Args:
       ctrl_state: initial batched CtrlState (batch B).
@@ -67,21 +101,34 @@ def replay_rollout(ctrl_state, model, params, log, dt,
     """
     dt = float(dt)
     state = ctrl_state
+    config = ("replay", dt, solver_type, settings, use_terrain_adapt,
+              estimate)
+    step = None
     records = []
     for t in range(log.quat_wxyz.shape[0]):
         sensors = controller.SensorData(*[leaf[t] for leaf in log])
-        state = controller.sensor_update(state, model, sensors, dt,
-                                         estimate=estimate)
-        state = controller.control_step(
-            state, model, params, dt, solver_type=solver_type,
-            settings=settings, use_terrain_adapt=use_terrain_adapt)
-        records.append((state.joint_torques, state.foot_forces_grf,
-                        state.contacts, state.root_pos))
+        if state.root_pos.shape[0] != 1:
+            state = controller.sensor_update(state, model, sensors, dt,
+                                             estimate=estimate)
+            state = controller.control_step(
+                state, model, params, dt, solver_type=solver_type,
+                settings=settings, use_terrain_adapt=use_terrain_adapt)
+        else:
+            args = (state, sensors, model, params)
+            if step is None:
+                step = rollout.cached_step(config, replay_parts(*config[1:]),
+                                           args)
+            # the graphs' buffers: the state goes back in as the next
+            # inputs, the records are copied out
+            state, = controller.run_tick(step, args)
+        records.append(graphs.clone((state.joint_torques,
+                                     state.foot_forces_grf, state.contacts,
+                                     state.root_pos)))
     if not records:
         raise ValueError("the sensor log holds no tick")
     names = ("joint_torques", "foot_forces_grf", "contacts", "root_pos_est")
-    return state, {name: torch.stack(leaves)
-                   for name, leaves in zip(names, zip(*records))}
+    return graphs.clone(state), {name: torch.stack(leaves)
+                                 for name, leaves in zip(names, zip(*records))}
 
 
 class SignalLog:

@@ -11,7 +11,9 @@ Both rollouts run B robots at once:
 - :func:`rollout` gives each robot the per-scenario semantics of the JAX
   ``rollout`` (``controller.control_step``): MPC or balance-QP stance
   control, each scenario routed on its own. At batch 1 it is the
-  single-robot 500 Hz loop.
+  single-robot 500 Hz loop, each tick replayed on the card from captured
+  CUDA graphs (:func:`tick_parts`: one up to the route code, one per
+  route), the counterpart of the JAX ``lax.scan`` body.
 
 :func:`rl_rollout` is the RL stack's closed loop (``init_rl_carry``):
 policy or servo stand -> position commands -> the plant's motor PD loop.
@@ -19,11 +21,13 @@ It launches none of the counted kernels, so on the card each of its ticks
 is one CUDA graph replay (``utils/graphs.CapturedStep``).
 """
 
+import collections
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from go1_qp_mpc_controller_torch.config import params as P
 from go1_qp_mpc_controller_torch.ctrl import controller
 from go1_qp_mpc_controller_torch.ctrl import rl as rl_lib
 from go1_qp_mpc_controller_torch.envs import srb_sim
@@ -89,6 +93,44 @@ def init_carry(model, params, batch, height=0.3, movement_mode=0,
                         stance_forces_z=weight.expand(batch, 4).clone())
 
 
+def _sense(carry, model, dt, estimate):
+    """The tick's sensor half: read the plant, then the observe + EKF
+    stage (K2), or the plant's ground truth without ``estimate``."""
+    ctrl, sim = carry.ctrl, carry.sim
+    sensors = srb_sim.read_sensors(sim, model, ctrl.contacts,
+                                   carry.stance_forces_z, dt)
+    ctrl = controller.sensor_update(ctrl, model, sensors, dt,
+                                    estimate=estimate)
+    if not estimate:
+        ctrl = ctrl._replace(root_pos=sim.root_pos,
+                             root_lin_vel=sim.root_lin_vel)
+    return ctrl
+
+
+def _plant(carry, ctrl, model, dt, ground_coef):
+    """The tick's plant half: one ``srb_sim.step`` on the controller's
+    torques. Returns (next RolloutCarry, the tick's RolloutTrace record)."""
+    sim_new, forces_z = srb_sim.step(
+        carry.sim, model, ctrl.joint_torques, ctrl.contacts,
+        ctrl.foot_pos_target_last_time, dt, ground_coef=ground_coef)
+    record = RolloutTrace(
+        root_pos=sim_new.root_pos, root_euler=ctrl.root_euler,
+        root_lin_vel=sim_new.root_lin_vel,
+        joint_torques=ctrl.joint_torques,
+        foot_forces_grf=ctrl.foot_forces_grf, contacts=ctrl.contacts,
+        est_root_pos=ctrl.root_pos,
+        terrain_pitch=ctrl.terrain_pitch_angle,
+        foot_pos_abs=ctrl.foot_pos_abs)
+    return RolloutCarry(ctrl=ctrl, sim=sim_new,
+                        stance_forces_z=forces_z), record
+
+
+def _stacked(records):
+    if not records:
+        raise ValueError("a rollout needs num_steps >= 1")
+    return RolloutTrace(*[torch.stack(leaves) for leaves in zip(*records)])
+
+
 def _run(carry, model, params, num_steps, dt, command_fn, estimate,
          ground_coef, control):
     """The closed loop: ``control(ctrl)`` is the controller tick after the
@@ -96,34 +138,111 @@ def _run(carry, model, params, num_steps, dt, command_fn, estimate,
     dt = float(dt)
     records = []
     for step_idx in range(num_steps):
-        ctrl, sim = carry.ctrl, carry.sim
         if command_fn is not None:
-            ctrl = command_fn(step_idx, ctrl)
-        sensors = srb_sim.read_sensors(sim, model, ctrl.contacts,
-                                       carry.stance_forces_z, dt)
-        ctrl = controller.sensor_update(ctrl, model, sensors, dt,
-                                        estimate=estimate)
-        if not estimate:
-            ctrl = ctrl._replace(root_pos=sim.root_pos,
-                                 root_lin_vel=sim.root_lin_vel)
-        ctrl = control(ctrl)
-        sim_new, forces_z = srb_sim.step(
-            sim, model, ctrl.joint_torques, ctrl.contacts,
-            ctrl.foot_pos_target_last_time, dt, ground_coef=ground_coef)
-        records.append(RolloutTrace(
-            root_pos=sim_new.root_pos, root_euler=ctrl.root_euler,
-            root_lin_vel=sim_new.root_lin_vel,
-            joint_torques=ctrl.joint_torques,
-            foot_forces_grf=ctrl.foot_forces_grf, contacts=ctrl.contacts,
-            est_root_pos=ctrl.root_pos,
-            terrain_pitch=ctrl.terrain_pitch_angle,
-            foot_pos_abs=ctrl.foot_pos_abs))
-        carry = RolloutCarry(ctrl=ctrl, sim=sim_new,
-                             stance_forces_z=forces_z)
-    if not records:
-        raise ValueError("a rollout needs num_steps >= 1")
-    trace = RolloutTrace(*[torch.stack(leaves) for leaves in zip(*records)])
-    return carry, trace
+            carry = carry._replace(ctrl=command_fn(step_idx, carry.ctrl))
+        ctrl = control(_sense(carry, model, dt, estimate))
+        carry, record = _plant(carry, ctrl, model, dt, ground_coef)
+        records.append(record)
+    return carry, _stacked(records)
+
+
+def tick_parts(dt, solver_type=controller.MPC,
+               settings=admm.ADMMSettings(), estimate=True,
+               use_terrain_adapt=True,
+               warm_settings=controller.WARM_SETTINGS, warm_mode="auto"):
+    """:func:`rollout`'s per-scenario tick (the horizon-10 MPC or the
+    balance QP) as ``graphs.StepParts`` over ``(carry, model, params,
+    *ground)`` (``ground``: the terrain coefficients, when there are any):
+    ``controller.tick_parts`` with the sensor half (:func:`_sense`) before
+    its ``pre`` and the plant step after each branch, which returns
+    (carry, record, bad); the balance QP's one part returns (carry,
+    record). :func:`rollout` captures them at batch 1 on the card. ``dt``
+    is a float."""
+    dt = float(dt)
+    ctrl = controller.tick_parts(dt, solver_type, settings,
+                                 use_terrain_adapt, warm_settings, warm_mode)
+    ground = lambda extra: extra[0] if extra else None
+    if ctrl.pre is None:
+        (name, fn), = ctrl.branches.items()
+
+        def tick(carry, model, params, *extra):
+            states = fn(_sense(carry, model, dt, estimate), model, params)
+            return _plant(carry, states, model, dt, ground(extra))
+        return graphs.StepParts(None, {name: tick})
+
+    def pre(carry, model, params, *extra):
+        return ctrl.pre(_sense(carry, model, dt, estimate), model, params)
+
+    def branch(fn):
+        def run(carry, model, params, *rest):
+            *extra, p = rest
+            states, bad = fn(p, params)
+            return (*_plant(carry, states, model, dt, ground(extra)), bad)
+        return run
+
+    return ctrl._replace(pre=pre, branches={
+        name: branch(fn) for name, fn in ctrl.branches.items()})
+
+
+# one robot's captured ticks by static configuration (most recently used
+# last), so that many short rollouts of one configuration capture once;
+# _CAPTURES holds each key's (captures, card memory its last capture
+# reserved), which chip_smoke.py prints. chip_smoke.py's phases use 6
+# configurations, none captured twice, each reserving up to ~170 MiB on
+# an H100: _KEEP leaves room for two more
+_CAPTURED = collections.OrderedDict()
+_CAPTURES = {}
+_KEEP = 8
+
+
+def cached_step(config, parts, args):
+    """``graphs.make_step`` of ``parts``; on the card kept under the static
+    ``config`` and the shapes, dtypes and device of ``args``, the
+    ``_KEEP`` most recently used. The steps are shared: two callers of
+    one configuration, in two threads or one inside the other, would
+    overwrite each other's buffers."""
+    leaves, _ = graphs.flatten(args)
+    if not leaves[0].is_cuda:
+        return graphs.make_step(parts, *args)
+    key = (config, leaves[0].device,
+           tuple((t.shape, t.dtype) for t in leaves))
+    step = _CAPTURED.pop(key, None)
+    if step is None:
+        # a capture empties the allocator's cache first (torch.cuda.graph):
+        # so does this, so that the difference is the capture's own
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(key[1])
+        step = graphs.make_step(parts, *args)
+        _CAPTURES[key] = (_CAPTURES.get(key, (0, 0))[0] + 1,
+                          torch.cuda.memory_reserved(key[1]) - reserved)
+    _CAPTURED[key] = step
+    while len(_CAPTURED) > _KEEP:
+        _CAPTURED.popitem(last=False)
+    return step
+
+
+def _run_one(carry, model, params, num_steps, command_fn, ground_coef,
+             stats, parts, config):
+    """:func:`_run` for one robot through ``parts`` (:func:`tick_parts`):
+    on the card each tick replays captured steps (kept under ``config``),
+    on the CPU it is their plain composition."""
+    extra = () if ground_coef is None else (torch.as_tensor(
+        ground_coef, dtype=carry.sim.root_pos.dtype,
+        device=carry.sim.root_pos.device),)
+    step = None
+    records = []
+    for step_idx in range(num_steps):
+        if command_fn is not None:
+            carry = carry._replace(ctrl=command_fn(step_idx, carry.ctrl))
+        args = (carry, model, params) + extra
+        if step is None:
+            step = cached_step(config, parts, args)
+        # the outputs are the graphs' buffers, which the next replay
+        # overwrites: the carry goes back in as the next inputs (copied
+        # before the replay), the record is copied out
+        carry, record = controller.run_tick(step, args, stats)
+        records.append(graphs.clone(record))
+    return graphs.clone(carry), _stacked(records)
 
 
 def rollout(carry, model, params, num_steps, dt,
@@ -133,6 +252,16 @@ def rollout(carry, model, params, num_steps, dt,
             warm_mode="auto", horizon=None, stats=None):
     """Run ``num_steps`` closed-loop ticks, each robot of the batch with
     the per-scenario controller (``controller.control_step``).
+
+    At batch 1 a tick is :func:`tick_parts`' composition: on the card one
+    captured ``pre`` step, one read of its route code and one captured
+    branch (and in "auto" ``warm_mode``, after a warm or window branch, a
+    health read and the re-solve it may call for), the counterpart of the
+    JAX package's jitted ``lax.scan`` body; the captures are kept by
+    static configuration and shared, so a batch-1 rollout is not
+    thread-safe (nor reentrant from ``command_fn``) on the card.
+    ``command_fn`` runs on the host before each tick. A larger batch, and
+    the stagewise ``horizon``, run the eager loop.
 
     Args:
       carry: RolloutCarry from :func:`init_carry` (batch 1 for one robot).
@@ -152,6 +281,13 @@ def rollout(carry, model, params, num_steps, dt,
     Returns:
       (carry, RolloutTrace) with trace leaves (T, B, ...).
     """
+    stagewise = (solver_type == controller.MPC
+                 and horizon not in (None, P.PLAN_HORIZON))
+    if carry.sim.root_pos.shape[0] == 1 and not stagewise:
+        config = (float(dt), solver_type, settings, estimate,
+                  use_terrain_adapt, warm_settings, warm_mode)
+        return _run_one(carry, model, params, num_steps, command_fn,
+                        ground_coef, stats, tick_parts(*config), config)
     return _run(carry, model, params, num_steps, dt, command_fn, estimate,
                 ground_coef, lambda ctrl: controller.control_step(
                     ctrl, model, params, float(dt), solver_type=solver_type,

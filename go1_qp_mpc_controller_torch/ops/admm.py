@@ -471,9 +471,11 @@ def solve_cold_fused(lazy, settings, mu, rho0):
     eq, lb_f, ub_f = _bounds(lazy.lb, lazy.ub)
     matvec = functools.partial(srb.constraint_matvec, mu=mu)
     rmatvec = functools.partial(srb.constraint_rmatvec, mu=mu)
-    rho = torch.as_tensor(rho0, dtype=lazy.gradient.dtype,
-                          device=lazy.gradient.device).expand(
-                              lazy.gradient.shape[:1])
+    like = lazy.gradient
+    # a number becomes a fill, not a host copy (which a capture refuses)
+    rho = (rho0.to(like.dtype).expand(like.shape[:1]) if torch.is_tensor(rho0)
+           else torch.full(like.shape[:1], float(rho0), dtype=like.dtype,
+                           device=like.device))
     rho_vec = _rho_vec(eq, rho, settings)
     l0 = settings.schulz_l0 if settings.schulz_l0 > 0 else 1e-6
     _resolved_impl(settings)

@@ -9,12 +9,11 @@ control ticks never reach the estimator: at a 2 ms control cadence against
 a 1 kHz feed, half the measurements are dropped.
 
 Here that thread runs the EKF step on the card (the state's device), on a
-CUDA stream of its own: every frame launches kernel K4 once for the
-innovation inverse (``ekf.innovation_inverse(..., "auto")``), between two
-CUDA graph replays (``utils/graphs.py``) for the work before it (FK, the
-predict step) and after it (the gain and covariance update), and the
-control loop merges the latest estimate (``ControlLoop(estimate_in_feed=
-True)``).
+CUDA stream of its own: every frame is one CUDA graph replay
+(``utils/graphs.py``) of FK, the predict step, kernel K4 for the
+innovation inverse (``ekf.innovation_inverse(..., "auto")``) and the gain
+and covariance update, and the control loop merges the latest estimate
+(``ControlLoop(estimate_in_feed=True)``).
 """
 
 import threading
@@ -123,32 +122,32 @@ class EstimatorThread:
         self.device = init_x.device
         self._dtype = init_x.dtype
         self._stream = new_stream(self.device)
-        predict = make_estimator_predict(model, contact_force_norm)
+        # the frame's first half alone (eager; checks read its innovation
+        # matrix), and the whole frame, captured below
+        self.predict = make_estimator_predict(model, contact_force_norm)
+        step = make_estimator_step(model, contact_force_norm)
         self._modes = {}
         with on_stream(self._stream):
             self._x = init_x.clone()
             self._P = init_P.clone()
             self._contacts = torch.zeros((1, 4), dtype=torch.bool,
                                          device=self.device)
-            # the first launches, and on the card the two graphs around
-            # K4, before the RT loop (results discarded)
+            # the first launches, and on the card the frame's graph, before
+            # the RT loop (results discarded)
             frame = self._frame(np.concatenate([[1.0, 0, 0, 0],
                                                 np.zeros(34)]),
                                 sensor_period_s)
-            self._predict = graphs.CapturedStep(
-                lambda x, p, f, mode: predict(
+            self._step = graphs.CapturedStep(
+                lambda x, p, f, mode: step(
                     x, p, *self._split(f), mode, f[0, SENSOR_WIDTH]),
                 self._x, self._P, frame, self._mode(0))
-            pred = self._predict(self._x, self._P, frame, self._mode(0))
-            s_inv = ekf.innovation_inverse(pred.s_mat, "auto")
-            self._correct = graphs.CapturedStep(ekf.correct, pred, s_inv)
             synchronize(self.device)
 
     def _frame(self, sensors, dt):
         """A (38,) host sensor frame and its step length ``dt`` (seconds)
-        as one (1, 39) tensor: one copy to the device. The predict graph
+        as one (1, 39) tensor: one copy to the device. The frame's graph
         reads dt from it, so a frame after dropped ones replays the same
-        graphs."""
+        graph."""
         buf = np.append(np.asarray(sensors, np.float64), dt)[None]
         return torch.as_tensor(buf, dtype=self._dtype).to(self.device)
 
@@ -159,13 +158,10 @@ class EstimatorThread:
                 t[:, 34:38])
 
     def _update(self, frame, mode):
-        """(x, P, contact weights) after one frame: the captured graphs
-        around the K4 launch."""
-        pred = self._predict(self._x, self._P, frame, mode)
-        x, p, est_c = self._correct(pred, ekf.innovation_inverse(
-            pred.s_mat, "auto"))
+        """(x, P, contact weights) after one frame: the captured frame,
+        K4 inside."""
         # the graph's buffers: the next frame overwrites them
-        return graphs.clone((x, p, est_c))
+        return graphs.clone(self._step(self._x, self._P, frame, mode))
 
     def _mode(self, mode):
         if mode not in self._modes:

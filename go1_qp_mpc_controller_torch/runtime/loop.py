@@ -12,11 +12,16 @@ Every step runs the port's batch-first controller at batch 1. On the card,
 each thread (the fast loop, the GRF loop, the estimator and the feeder)
 issues its work on a CUDA stream of its own, so the fast loop's torques do
 not wait behind a whole GRF solve on one queue. The threads share one
-Python GIL, and a step is hundreds of small host dispatches: the fixed-
-shape steps (the feeder's tick, the estimator's frame around its K4
-launch, and the fast step when the estimator thread runs) are therefore
-replayed as CUDA graphs (``utils/graphs.py``); the GRF solve, which routes
-on the host, runs eagerly. A thread publishes tensors
+Python GIL, and a step is hundreds of small host dispatches: every step
+is therefore replayed as CUDA graphs with its kernels inside
+(``utils/graphs.py``), the counterparts of the JAX loop's jitted steps.
+The feeder's tick, the estimator's frame (K4) and the fast step (K2 when
+the estimator thread is off) are one graph each. The GRF solve and the
+single-cadence step route as the JAX package's ``lax.switch`` does: one
+graph up to the route code, one read of it, the route's graph, and after
+a warm or window route one read of its health flag (and the cold
+re-solve's graph when it is set). :meth:`ControlLoop.warmup` captures
+every route before any thread starts. A thread publishes tensors
 to another only after waiting for its own stream; tensors that cross into
 the fast loop's stream are recorded on it (``record_stream``) so the
 caching allocator cannot hand their memory out while that stream may
@@ -32,6 +37,7 @@ import torch
 from go1_qp_mpc_controller_torch.config import params as P
 from go1_qp_mpc_controller_torch.ctrl import command as command_lib
 from go1_qp_mpc_controller_torch.ctrl import controller, gait, swing, torque
+from go1_qp_mpc_controller_torch.envs import replay
 from go1_qp_mpc_controller_torch.ops import admm
 from go1_qp_mpc_controller_torch.runtime import bridge as bridge_lib
 from go1_qp_mpc_controller_torch.runtime import estimator as estimator_lib
@@ -131,7 +137,9 @@ class ControlLoop:
         self.sensor_period = sensor_period_s
         self.est_thread = None
         self._est_ready = None
-        self._fast = None           # the fast step's CapturedStep, if any
+        # the captured steps (``warmup``): the fast step, the GRF solve
+        # and the single-cadence step
+        self._fast = self._grf = self._full = None
         self.fast_ticks = 0
         self.grf_ticks = 0
 
@@ -202,22 +210,41 @@ class ControlLoop:
                 torch.as_tensor(buttons[None], dtype=torch.int32).to(
                     self.device))
 
+    def _grf_parts(self):
+        """:meth:`grf_step` as ``graphs.StepParts`` over ``(state,
+        params)`` (``controller.grf_parts``); every part returns the
+        ``_GRF_FIELDS`` values (and the MPC branches the health flag)."""
+        grf = controller.grf_parts(self.solver, self.settings,
+                                   self.static.use_terrain_adapt)
+        fields = lambda st: tuple(getattr(st, f) for f in self._GRF_FIELDS)
+        if grf.pre is None:
+            (name, fn), = grf.branches.items()
+            return graphs.StepParts(None, {name: lambda state, params: (
+                fields(fn(state, self.model, params)),)})
+
+        def branch(fn):
+            def run(state, params, p):
+                states, bad = fn(p, params)
+                return fields(states), bad
+            return run
+
+        return grf._replace(
+            pre=lambda state, params: grf.pre(state, self.model, params),
+            branches={name: branch(fn) for name, fn in grf.branches.items()})
+
     def warmup(self, dual=True):
-        """Make every step's first launches (the kernels' first loads)
-        before the RT loops start, so the first ticks do not stall;
-        results are discarded. With ``estimate_in_feed`` this also builds
-        the EstimatorThread (its first frame runs in its constructor)."""
+        """Capture every step the loops run (on the card: CUDA graphs, each
+        route of the GRF solve or the single-cadence step included; on the
+        CPU: their plain compositions) before the RT loops start, so that no
+        step captures or loads a kernel inside a running loop; results
+        are discarded. With ``estimate_in_feed`` this also builds the
+        EstimatorThread (its first frame runs in its constructor)."""
         sensors = self._sensor_data({
             "quat": [1.0, 0.0, 0.0, 0.0], "acc": [0.0, 0.0, 9.8],
             "gyro": np.zeros(3),
             "joint_pos": self.state.joint_pos[0].cpu().double().numpy(),
             "joint_vel": np.zeros(12), "foot_force": np.full(4, 50.0)})
         if dual:
-            # with the estimator thread on, the fast step launches no
-            # counted kernel: on the card it is captured as a CUDA graph
-            capture = (graphs.CapturedStep
-                       if self.estimate_in_feed and self.device.type == "cuda"
-                       else lambda fn, *args: None)
             if self.command_source is not None:
                 # the operator chain keeps one kp_linear row per scenario
                 self.params = self.params._replace(
@@ -225,17 +252,23 @@ class ControlLoop:
                 joy = command_lib.init_joy_state(
                     1, 0.3, self.state.root_pos.dtype, self.device)
                 ax, btn = self._joy_inputs(np.zeros(8), np.zeros(5))
-                st, _, _ = self.fast_step_joy(self.state, joy, self.params,
-                                              ax, btn, sensors)
-                self._fast = capture(self.fast_step_joy, self.state, joy,
-                                     self.params, ax, btn, sensors)
+                self._fast = graphs.CapturedStep(
+                    self.fast_step_joy, self.state, joy, self.params, ax,
+                    btn, sensors)
+                st = self._fast(self.state, joy, self.params, ax, btn,
+                                sensors)[0]
             else:
-                st = self.fast_step(self.state, sensors, self.params)
-                self._fast = capture(self.fast_step, self.state, sensors,
-                                     self.params)
-            self.grf_step(st, self.params)
+                self._fast = graphs.CapturedStep(self.fast_step, self.state,
+                                                 sensors, self.params)
+                st = self._fast(self.state, sensors, self.params)
+            self._grf = graphs.make_step(self._grf_parts(), st,
+                                         self.params)
         else:
-            self.full_step(self.state, sensors, self.params)
+            self._full = graphs.make_step(
+                replay.replay_parts(self.main_period, self.solver,
+                                    self.settings,
+                                    self.static.use_terrain_adapt),
+                self.state, sensors, self.model, self.params)
         synchronize(self.device)
         if dual and self.estimate_in_feed:
             self._est_ready = self._make_estimator()
@@ -248,7 +281,11 @@ class ControlLoop:
 
     def run(self, num_ticks=None, duration_s=None):
         """Blocking main loop, single cadence: plan + solve + send each
-        tick (the fusion of the reference's two threads)."""
+        tick (the fusion of the reference's two threads), :meth:`full_step`
+        as captured by ``warmup(dual=False)``."""
+        if self._full is None:
+            raise RuntimeError("ControlLoop.run: call warmup(dual=False) "
+                               "first")
         rate = bridge_lib.RateKeeper(self.main_period / self.time_scale)
         n = 0
         t_end = time.time() + duration_s if duration_s else None
@@ -269,8 +306,9 @@ class ControlLoop:
                         break
                     t0 = time.perf_counter()
                     with self._lock:
-                        self.state = self.full_step(
-                            self.state, self._sensor_data(s), self.params)
+                        self.state = graphs.clone(controller.run_tick(
+                            self._full, (self.state, self._sensor_data(s),
+                                         self.model, self.params))[0])
                     tau = self.state.joint_torques[0].to(
                         "cpu", torch.float64).numpy()
                     self.bridge.push_command(tau)
@@ -293,7 +331,10 @@ class ControlLoop:
 
         Returns the number of fast-loop iterations; ``self.fast_ticks``
         counts ticks on a new frame and ``self.grf_ticks`` landed solves.
+        The steps are those ``warmup(dual=True)`` captured.
         """
+        if self._fast is None or self._grf is None:
+            raise RuntimeError("ControlLoop.run_dual: call warmup() first")
         grf_done = threading.Event()
         fast_stream = new_stream(self.device)
         grf_stream = new_stream(self.device)
@@ -308,12 +349,14 @@ class ControlLoop:
                             snap = self.state
                             params_now = self.params
                         t0 = time.perf_counter()
-                        solved = self.grf_step(snap, params_now)
+                        # one route read, one branch, one health read;
+                        # the graph's buffers are copied before they leave
+                        solved = graphs.clone(controller.run_tick(
+                            self._grf, (snap, params_now))[0])
                         synchronize(self.device)
                         self.metrics.log(
                             "grf_ms", (time.perf_counter() - t0) * 1e3)
-                        merged = {f: getattr(solved, f)
-                                  for f in self._GRF_FIELDS}
+                        merged = dict(zip(self._GRF_FIELDS, solved))
                         _record(tuple(merged.values()), fast_stream)
                         with self._lock:
                             self.state = self.state._replace(**merged)
@@ -391,16 +434,13 @@ class ControlLoop:
                                     btn_accum, np.asarray(bt[:5], np.int32))
                             ax_t, bt_t = self._joy_inputs(last_axes,
                                                           btn_accum)
-                            args = (state, joy, params, ax_t, bt_t, sensors)
-                            state, joy, params = (
-                                graphs.clone(self._fast(*args)) if self._fast
-                                else self.fast_step_joy(*args))
+                            state, joy, params = graphs.clone(self._fast(
+                                state, joy, params, ax_t, bt_t, sensors))
                             btn_accum = np.zeros(5, np.int32)
                             flags = joy.exit_request.to(dtype)
                         else:
-                            args = (state, sensors, params)
-                            state = (graphs.clone(self._fast(*args))
-                                     if self._fast else self.fast_step(*args))
+                            state = graphs.clone(self._fast(state, sensors,
+                                                            params))
                             flags = torch.zeros_like(
                                 state.movement_mode, dtype=dtype)
                         # torques, movement mode and the exit request in one

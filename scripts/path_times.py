@@ -8,7 +8,9 @@ unpacked from ``git archive``), builds that checkout's kernels into its own
 their lines (throughput or tick wall time, device busy time a tick,
 routes, launches, health): the batched paths (main, polished, chain), one
 robot (``single_robot_phase``: the trot and the balance-QP stand at batch
-1), the balance-QP stand alone with a profile of its device time (qp) and
+1), the same ticks eager beside captured (``captured_steps_phase``, in
+checkouts that have it), the balance-QP stand alone with a profile of its
+device time (qp) and
 the real-time runtime (``runtime_phase`` on each of the checkout's
 ``RUNTIME`` presets), the scenario sweep (``sweep_phase``), the mesh at
 world size 1 (``mesh_phase``), the long
@@ -28,8 +30,8 @@ import argparse
 import os
 import sys
 
-PATHS = ("main", "polished", "chain", "robot", "qp", "runtime", "sweep",
-         "mesh", "long", "rl", "rl_loop", "replay", "robust")
+PATHS = ("main", "polished", "chain", "robot", "captured", "qp", "runtime",
+         "sweep", "mesh", "long", "rl", "rl_loop", "replay", "robust")
 
 
 def qp_stand(cs, device):
@@ -98,6 +100,7 @@ def main(argv=None):
         "chain": lambda: cs.dense_chain_phase(
             cs.BATCH, args.seed + 3, device, cs.REPS)[2],
         "robot": lambda: cs.single_robot_phase(device, card)[1],
+        "captured": lambda: cs.captured_steps_phase(device, card)[1],
         "qp": lambda: qp_stand(cs, device),
         "runtime": lambda: [line for preset in cs.RUNTIME for line in
                             cs.runtime_phase(preset, device, card)[1]],

@@ -4,12 +4,13 @@
 Times each runtime step of one preset alone at batch 1 (the fast step,
 the estimator's frame, the feeder's plant step and read, each eager and,
 on the card, as the runtime replays it from CUDA graphs: p50 wall time,
-the stream synchronized), then ``ControlLoop.grf_step`` alone and while
-``--threads``
-background threads each run a loop of tiny device operations on streams of
-their own (standing in for the fast loop, the estimator and the feeder),
-once at Python's default GIL switch interval (5 ms) and once at
-``--switch-interval``. Prints one JSON line.
+the stream synchronized), then the GRF solve, eager
+(``ControlLoop.grf_step``) and as the GRF loop replays it (the routed
+graphs ``ControlLoop.warmup`` captured, its outputs copied), alone and
+while ``--threads`` background threads each run a loop of tiny device
+operations on streams of their own (standing in for the fast loop, the
+estimator and the feeder), once at Python's default GIL switch interval
+(5 ms) and once at ``--switch-interval``. Prints one JSON line.
 
     python3 scripts/runtime_gil_probe.py --preset hardware_qp
     python3 scripts/runtime_gil_probe.py --device cpu
@@ -29,6 +30,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 from go1_qp_mpc_controller_torch.config import presets  # noqa: E402
+from go1_qp_mpc_controller_torch.ctrl import controller  # noqa: E402
 from go1_qp_mpc_controller_torch.envs import rollout  # noqa: E402
 from go1_qp_mpc_controller_torch.runtime import estimator  # noqa: E402
 from go1_qp_mpc_controller_torch.runtime import feeder as feeder_lib  # noqa
@@ -38,11 +40,11 @@ from go1_qp_mpc_controller_torch.utils.device import (  # noqa: E402
     new_stream, on_stream, resolve_device, synchronize)
 
 
-def solve_ms(cl, state, n):
+def solve_ms(cl, solve, n):
     walls = []
     for _ in range(n):
         t0 = time.perf_counter()
-        cl.grf_step(state, cl.params)
+        solve()
         synchronize(cl.device)
         walls.append((time.perf_counter() - t0) * 1e3)
     return {"p50": float(np.percentile(walls, 50)),
@@ -95,13 +97,13 @@ def main(argv=None):
             feeder._sim, feeder._forces_z,
             torch.zeros((1, 12), device=device)), feeder._read()),
         # the same steps as the runtime runs them: CUDA graph replays (the
-        # estimator's around its K4 launch), copies to and from the host
+        # estimator's with its K4 launch), copies to and from the host
         "fast_graph": lambda: graphs.clone(cl._fast(cl.state, sensors,
                                                     cl.params)),
         "estimator_graph": lambda: est._update(est._frame(frame, 0.001),
                                                est._mode(0)),
         "feeder_graph": lambda: feeder._advance(zero_cmd)}
-    if cl._fast is None:                     # the CPU: no graphs
+    if device.type != "cuda":                # the CPU: no graphs
         for name in ("fast_graph", "estimator_graph", "feeder_graph"):
             del steps[name]
     out = {"preset": args.preset, "device": str(device),
@@ -114,7 +116,12 @@ def main(argv=None):
             synchronize(device)
             walls.append((time.perf_counter() - t0) * 1e3)
         out[f"{name}_alone_ms_p50"] = float(np.percentile(walls, 50))
-    out["alone_ms"] = solve_ms(cl, cl.state, args.solves)
+    solves = {
+        "": lambda: cl.grf_step(cl.state, cl.params),
+        "graph_": lambda: graphs.clone(controller.run_tick(
+            cl._grf, (cl.state, cl.params))[0])}
+    for tag, solve in solves.items():
+        out[f"{tag}alone_ms"] = solve_ms(cl, solve, args.solves)
     default = sys.getswitchinterval()
     for name, interval in (("default", default),
                            ("short", args.switch_interval)):
@@ -127,7 +134,9 @@ def main(argv=None):
             t.start()
         time.sleep(0.2)
         t0, c0 = time.perf_counter(), counter[0]
-        out[f"contended_{name}_ms"] = solve_ms(cl, cl.state, args.solves)
+        for tag, solve in solves.items():
+            out[f"{tag}contended_{name}_ms"] = solve_ms(cl, solve,
+                                                        args.solves)
         out[f"busy_ops_per_s_{name}"] = ((counter[0] - c0)
                                          / (time.perf_counter() - t0))
         stop.set()

@@ -769,10 +769,10 @@ def test_estimator_thread_launches_k4_each_frame(card):
 
 def test_captured_runtime_steps_match_eager(card):
     """The runtime's CUDA-graph replays (the feeder's tick, the estimator's
-    two graphs around K4, the fast step) equal the same steps run eagerly
-    on the same inputs, within 1e-6 x max(1, max|eager|); K4 on the
-    estimator's (1, 28, 28) innovation matrix agrees with its plain
-    version."""
+    frame with K4 inside, the fast step, each route of the GRF solve)
+    equal the same steps run eagerly on the same inputs, within 1e-6 x
+    max(1, max|eager|); K4 on the estimator's (1, 28, 28) innovation
+    matrix agrees with its plain version."""
     import numpy as np
     from torch.utils import _pytree as pytree
 
@@ -813,9 +813,9 @@ def test_captured_runtime_steps_match_eager(card):
                 gap * est.period)
             pred = predict(est._x, est._P, *est._split(frame), est._mode(1),
                            gap * est.period)
-            close(est._predict(est._x, est._P, frame, est._mode(1)), pred)
-            s_inv = ekf.innovation_inverse(pred.s_mat, "plain")
-            close(est._correct(pred, s_inv), ekf.correct(pred, s_inv))
+            close(est._step(est._x, est._P, frame, est._mode(1)),
+                  ekf.correct(pred, ekf.innovation_inverse(pred.s_mat,
+                                                           "auto")))
             readings, passed = chip_smoke.k4_check(
                 pred.s_mat, coeffs, chip_smoke.K4_S_TOL,
                 chip_smoke.K4_S_RES_TOL)
@@ -829,21 +829,38 @@ def test_captured_runtime_steps_match_eager(card):
                                    "foot_force": np.full(4, 50.0)})
         close(cl._fast(cl.state, sensors, cl.params),
               cl.fast_step(cl.state, sensors, cl.params))
+        parts = cl._grf_parts()
+        mid, _ = parts.pre(cl.state, cl.params)
+        cl._grf(cl.state, cl.params)
+        for name, branch in parts.branches.items():
+            close(cl._grf.run(name), branch(cl.state, cl.params, mid))
     finally:
         cl.close()
 
 
-def test_captured_step_refuses_a_counted_kernel(card):
-    """A step that launches a counted kernel is not captured: its replays
-    would launch the kernel without the wrapper counting them."""
+def test_captured_step_counts_replayed_kernel_launches(card):
+    """A captured step that launches a counted kernel keeps its wrapper's
+    counter honest: its warm-up runs count (and are summed apart), the
+    capture counts nothing, every replay counts its launch; the replay
+    equals the eager call."""
     from go1_qp_mpc_controller_torch.ops import schulz_lanes
     from go1_qp_mpc_controller_torch.utils import graphs
 
     coeffs = admm._scaled_schulz_coeffs(ekf.SINV_L0)
-    m = torch.eye(28, device=card).expand(2, 28, 28).contiguous()
-    with pytest.raises(RuntimeError, match="schulz_lanes"):
-        graphs.CapturedStep(
-            lambda s: schulz_lanes.schulz_inverse_lanes(s, coeffs), m)
+    fn = lambda s: schulz_lanes.schulz_inverse_lanes(s, coeffs)
+    m = (torch.eye(28, device=card) * 2.0).expand(2, 28, 28).contiguous()
+    schulz_lanes.reset_launches()
+    graphs.reset_records()
+    step = graphs.CapturedStep(fn, m)
+    torch.cuda.synchronize()
+    assert schulz_lanes.launches == 2                  # the warm-up runs
+    assert graphs.warmup_launches == {"schulz_lanes": (2, {})}
+    assert step.launches == {"schulz_lanes": (1, {})}
+    for k in range(3):
+        m_k = m * (1.0 + k)
+        assert torch.equal(step(m_k), fn(m_k))
+    assert schulz_lanes.launches == 2 + 3 + 3
+    assert graphs.replayed_launches == {"schulz_lanes": (3, {})}
 
 
 def test_dense_paths_launch_k3_and_k6(card):
@@ -1088,4 +1105,17 @@ def test_replay_reproduces_the_recorded_trot(card, monkeypatch):
     joint-signal replay tracks its signal."""
     monkeypatch.setattr(chip_smoke, "REPLAY_TICKS", 150)
     _, lines, passed = chip_smoke.replay_phase(card, "card")
+    assert passed, lines
+
+
+def test_captured_one_robot_ticks_equal_eager(card, monkeypatch):
+    """``chip_smoke.captured_steps_phase`` at 140 ticks: the captured
+    one-robot MPC and balance-QP ticks equal the eager composition of the
+    same parts bit for bit, with equal launches per kernel and route and
+    equal route sequences (warm, window, cold and a health re-solve)."""
+    monkeypatch.setattr(chip_smoke, "CAPTURED_TICKS", 140)
+    monkeypatch.setattr(chip_smoke, "CAPTURED_WALK_AT", 60)
+    monkeypatch.setattr(chip_smoke, "CAPTURED_POISON_AT", 50)
+    monkeypatch.setattr(chip_smoke, "CAPTURED_PROFILE_TICKS", 5)
+    _, lines, passed = chip_smoke.captured_steps_phase(card, "card")
     assert passed, lines
