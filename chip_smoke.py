@@ -8,8 +8,8 @@ calls, with every launch counter set to 0 just before the path and read
 just after it:
 
 - the main path: the batched closed-loop controller tick
-  (``envs.rollout.rollout_batched``) at batch 4096 with the segmented cold
-  settings (K1, K2, K6);
+  (``envs.rollout.rollout_batched``, each tick replayed from captured CUDA
+  graphs) at batch 4096 with the segmented cold settings (K1, K2, K6);
 - the dense warm-tick chain: fresh cold solves (``admm.mpc_solve_cold``,
   K1, K6), then 40 warm ticks of ``admm_iterations.mpc_solve_warm_batch``
   (K3, K6) at batch 4096;
@@ -20,7 +20,8 @@ just after it:
   forced) through the eager composition of ``rollout.tick_parts`` and
   through the captured graphs, held equal bit for bit, in launches per
   kernel and route, and in route sequence;
-- the batched tick with the polished cold settings (K1, K2, K3, K6);
+- the batched tick with the polished cold settings (K1, K2, K3, K6),
+  replayed from captured graphs too;
 - K5's own entry (``ops/schulz_balanced.py``; in the JAX package only
   tests call it);
 - the real-time host runtime (``main.py loop``): ``ControlLoop.run_dual``
@@ -824,6 +825,8 @@ def main_path_phase(batch, onset_ticks, timed_ticks, seed, device,
         if tick_stats == {"compact": 1}:
             compact_k1 = kkt_schulz.launches - k1_before
     counts = read_counts()
+    # the ticks' own launches: the captures' warm-up runs apart
+    own = tick_counts(counts)
 
     ticks = onset_ticks + timed_ticks + compact_tries
     finite = all(bool(torch.isfinite(getattr(t, f)).all())
@@ -845,10 +848,10 @@ def main_path_phase(batch, onset_ticks, timed_ticks, seed, device,
         # the base program's launch, then one for each cold segment
         "compact_tick_k1_launches==1+segments":
             compact_k1 == 1 + settings.segments,
-        "k2_launches==ticks": counts["observe_ekf"] == ticks,
-        "k1_launches>=ticks": counts["kkt_schulz"] >= ticks,
+        "k2_launches==ticks": own["observe_ekf"] == ticks,
+        "k1_launches>=ticks": own["kkt_schulz"] >= ticks,
         # every route ends in at least one ADMM loop on K6
-        "k6_launches>=ticks": counts["admm_iterations"] >= ticks,
+        "k6_launches>=ticks": own["admm_iterations"] >= ticks,
         "no_k3": counts["schulz_batch"] == 0}
     lines = [
         f"main path: rollout_batched batch {batch}, trot 0.25 m/s, "
@@ -859,7 +862,8 @@ def main_path_phase(batch, onset_ticks, timed_ticks, seed, device,
         f"{json.dumps(timed_stats)}, then {compact_tries} ticks with "
         f"{len(flip)} carried contact patterns flipped "
         f"{json.dumps(compact_stats)} (K1 launches on the compact tick: "
-        f"{compact_k1}); launches over {ticks} ticks {json.dumps(counts)}",
+        f"{compact_k1}); launches {json.dumps(counts)}, of them the "
+        f"{ticks} ticks' {json.dumps(own)}",
         f"main path health: healthy share {share:.4f} (height in "
         f"[0.25, 0.35] and tilt < 0.25 rad over the timed ticks), mean vx "
         f"{vx:.4f} m/s, checks {json.dumps(checks)} "
@@ -1431,19 +1435,27 @@ def _pct(walls, q):
 
 
 def capture_cache_line():
-    """What the one-robot capture cache (``rollout.cached_step``) saw in
-    this process: the static configurations captured, the captures (a
-    configuration captured again had been evicted), the card memory the
-    captures reserved, and how many steps it keeps."""
+    """What the capture cache (``rollout.cached_step``) saw in this
+    process, for the one-robot and the batched steps: the static
+    configurations captured, the captures (a configuration captured again
+    had been evicted), the card memory the captures reserved, and how many
+    steps it keeps."""
     from go1_qp_mpc_controller_torch.envs import rollout
-    caps = list(rollout._CAPTURES.values())
-    n = sum(c for c, _ in caps)
-    mib = [b / 2 ** 20 for _, b in caps]
-    return (f"one-robot capture cache: {len(caps)} configurations, {n} "
+    lines = []
+    for batched, name, keep in ((False, "one-robot", rollout._KEEP),
+                                (True, "batched", rollout._KEEP_BATCHED)):
+        caps = [v for k, v in rollout._CAPTURES.items()
+                if rollout._batched(k) == batched]
+        n = sum(c for c, _ in caps)
+        mib = [b / 2 ** 20 for _, b in caps]
+        kept = sum(rollout._batched(k) == batched
+                   for k in rollout._CAPTURED)
+        lines.append(
+            f"{name} capture cache: {len(caps)} configurations, {n} "
             f"captures ({n - len(caps)} after an eviction), card memory "
             f"reserved by a capture max {max(mib, default=0.0):.1f} MiB, "
-            f"total {sum(mib):.1f} MiB; {len(rollout._CAPTURED)} kept of at "
-            f"most {rollout._KEEP}")
+            f"total {sum(mib):.1f} MiB; {kept} kept of at most {keep}")
+    return "\n".join(lines)
 
 
 def single_robot_phase(device, card):
@@ -1593,12 +1605,12 @@ def captured_steps_phase(device, card):
             t0 = time.perf_counter()
             if command is not None:
                 carry = carry._replace(ctrl=command(tick, carry.ctrl))
-            taken, (carry, record, *_) = graphs.compose(
+            taken, (carry, record) = graphs.compose_stages(
                 parts, carry, model, params)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             records.append(record)
-            routes.append(taken)
+            routes.append(list(taken) or ["qp"])
         trace = type(records[0])(*[torch.stack(leaves)
                                    for leaves in zip(*records)])
         return carry, trace, routes, walls
@@ -1646,9 +1658,10 @@ def captured_steps_phase(device, card):
             pytree.tree_leaves((e_trace, e_carry)),
             pytree.tree_leaves((c_trace, c_carry)))) if not same_bits(a, b)]
         seen = sorted({r for taken in c_routes for r in taken})
-        # the route read, and the health read where the parts recheck
-        reads = sum(0 if parts.pre is None else 1 + (taken[0] in parts.recheck)
-                    for taken in c_routes)
+        # the route read, and the health read where the routing rechecks
+        recheck = controller.grf_routing(controller.WARM_SETTINGS)[2]
+        reads = sum(0 if solver == controller.QP
+                    else 1 + (taken[0] in recheck) for taken in c_routes)
         med = {w: statistics.median(t) * 1e3 for w, t in (
             ("eager", e_walls), ("captured", c_walls))}
         checks.update({
@@ -1728,6 +1741,7 @@ def polished_batched_phase(batch, seed, device, card):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     counts = read_counts()
+    own = tick_counts(counts)
     z = tr.root_pos[..., 2]
     tilt = torch.sqrt(tr.root_euler[..., 0] ** 2 + tr.root_euler[..., 1] ** 2)
     share = float(((z >= 0.25) & (z <= 0.35) & (tilt < 0.25)).all(0)
@@ -1739,8 +1753,9 @@ def polished_batched_phase(batch, seed, device, card):
         "healthy_share>=0.99": share >= 0.99,
         "cold_ticks_in_timed_span": timed.get("cold", 0)
                                     + timed.get("compact", 0) > 0,
-        "k3_3_per_cold_tick": counts["schulz_batch"] == 3 * cold_ticks,
-        "k6_launches>=ticks": counts["admm_iterations"]
+        # the ticks' own launches: the captures' warm-up runs apart
+        "k3_3_per_cold_tick": own["schulz_batch"] == 3 * cold_ticks,
+        "k6_launches>=ticks": own["admm_iterations"]
                               >= POLISHED_ONSET_TICKS + POLISHED_TIMED_TICKS}
     rate = batch * POLISHED_TIMED_TICKS / (t2 - t1)
     lines = [

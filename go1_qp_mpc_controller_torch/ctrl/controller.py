@@ -28,8 +28,13 @@ device at most twice (see :func:`compute_grf_mpc_batched` and
 fixed-shape parts (:func:`grf_mpc_pre`, :func:`grf_mpc_branches`,
 :func:`grf_mpc_finish`; :func:`grf_parts`, :func:`tick_parts`), which the
 one-robot paths capture as CUDA graphs, one per route
-(``utils/graphs.RoutedStep``); :func:`grf_routing` is the one routing
-rule of both.
+(``utils/graphs.StagedStep``); :func:`grf_routing` is the one routing
+rule of both, :func:`routed_rule` its host side. The batched tick comes
+in fixed-shape parts too (:func:`grf_batched_parts`,
+:func:`tick_batched_parts`: the whole batch or the gathered
+``compact_k`` sub-batch), routed by :func:`batched_routing`, which
+:func:`compute_grf_mpc_batched` composes plainly and
+``envs/rollout.py::rollout_batched`` captures on the card.
 """
 
 from typing import NamedTuple
@@ -487,7 +492,7 @@ def grf_routing(warm_settings, warm_mode="auto"):
     code, "warm" and "window" rechecked by "health"; a forced ``warm_mode``
     takes its branch, without ``warm_settings`` "plain", neither
     rechecked. :func:`compute_grf_mpc` routes by it at any batch,
-    :func:`grf_parts` at batch 1."""
+    :func:`grf_parts` at batch 1 (:func:`routed_rule`)."""
     if warm_mode not in ("auto", "warm", "cold"):
         raise ValueError(f"unknown warm_mode {warm_mode!r}")
     if warm_settings is None or warm_mode != "auto":
@@ -497,84 +502,97 @@ def grf_routing(warm_settings, warm_mode="auto"):
             {"warm": "health", "window": "health"})
 
 
+def routed_rule(read, recheck):
+    """The host side of a batch-1 routed step (:func:`grf_routing`), a
+    ``graphs.Stages`` rule over a part "pre" -> (mid, route code) and one
+    part per branch -> (outputs..., flag): part "pre", one host read of
+    its code that names the branch, the branch, and where ``recheck``
+    names a further branch for it, the flag's host read and, when the flag
+    is set, that branch. Returns (the routes run, "plain" counted as
+    "cold"; the last branch's outputs without the flag)."""
+    def rule(run):
+        _, code = run("pre")
+        keys = (read(code),)
+        out = run(keys[0])
+        again = recheck.get(keys[0])
+        if again is not None and bool(out[-1].any()):  # the flag's host read
+            keys, out = keys + (again,), run(again)
+        return tuple("cold" if k == "plain" else k for k in keys), out[:-1]
+    return rule
+
+
 def grf_parts(solver_type=MPC, settings=admm.ADMMSettings(),
               use_terrain_adapt=True, warm_settings=WARM_SETTINGS,
               warm_mode="auto"):
     """One robot's GRF solve (:func:`compute_grf_mpc` at horizon 10, or
-    :func:`compute_grf_qp`) as ``graphs.StepParts`` over ``(states, model,
-    params)``, for callers that add their own halves around it: ``pre`` ->
-    (GrfPre, route code), each branch ``fn(pre, params)`` -> (states,
-    bad), routed by :func:`grf_routing`; the balance QP's one part
-    ``fn(states, model, params)`` -> states."""
+    :func:`compute_grf_qp`) as ``graphs.Stages`` over ``(states, model,
+    params)``, for callers that nest it (``graphs.nest``): "pre" ->
+    (GrfPre, route code), each branch -> (states, bad), routed by
+    :func:`routed_rule`; the balance QP's one unrouted part -> (states,).
+    Either composition returns (states,)."""
     if solver_type == QP:
-        return graphs.StepParts(None, {"qp": lambda states, model, params: (
-            compute_grf_qp(states, model, params, settings))})
+        return graphs.Stages(
+            {"qp": (lambda args, mids: (compute_grf_qp(*args, settings),),
+                    ())}, lambda run: ((), run("qp")))
     if solver_type != MPC:
         raise ValueError(f"unknown solver_type {solver_type!r}")
     names, read, recheck = grf_routing(warm_settings, warm_mode)
     solves = grf_mpc_branches(settings, warm_settings)
 
-    def pre(states, model, params):
-        p = grf_mpc_pre(states, model, params, use_terrain_adapt)
+    def pre(args, mids):
+        p = grf_mpc_pre(*args, use_terrain_adapt)
         return p, p.route
 
     def branch(solve):
-        def run(p, params):
+        def run(args, mids):
+            (p, _), = mids
             x_sol, warm_out, bad = solve(p)
             return grf_mpc_finish(p, x_sol, warm_out), bad
         return run
 
-    return graphs.StepParts(pre, {name: branch(solves[name])
-                                  for name in names}, read, recheck)
+    parts = {"pre": (pre, ())}
+    parts.update({name: (branch(solves[name]), ("pre",)) for name in names})
+    return graphs.Stages(parts, routed_rule(read, recheck))
+
+
+def _planned(dt):
+    """The tick's plan and swing stages, as ``graphs.nest``'s ``enter``
+    over ``(states, model, params, ...)``."""
+    def plan(args):
+        states, model, params = args[:3]
+        pin_f32_matmuls()
+        states = gait.update_plan(states, params, model)
+        return (swing.generate_swing_legs_ctrl(states, params, dt), model,
+                params)
+    return plan
+
+
+def _torques(args, out):
+    """The tick's torques on a GRF part's (states, ...), as
+    ``graphs.nest``'s ``leave``: the parameters are the third argument."""
+    return (torque.compute_joint_torques(out[0], args[2]), *out[1:])
 
 
 def tick_parts(dt, solver_type=MPC, settings=admm.ADMMSettings(),
                use_terrain_adapt=True, warm_settings=WARM_SETTINGS,
                warm_mode="auto"):
-    """:func:`control_step` (horizon 10) of one robot as
-    ``graphs.StepParts`` over ``(states, model, params)``: plan -> swing
-    -> :func:`grf_parts` -> torques; ``pre`` -> (GrfPre, route code),
-    each branch ``fn(pre, params)`` -> (states, bad); the balance QP's one
-    part ``fn(states, model, params)`` -> states. ``dt`` is a float."""
-    grf = grf_parts(solver_type, settings, use_terrain_adapt, warm_settings,
-                    warm_mode)
-
-    def plan(states, model, params):
-        pin_f32_matmuls()
-        states = gait.update_plan(states, params, model)
-        return swing.generate_swing_legs_ctrl(states, params, dt)
-
-    if grf.pre is None:
-        (name, solve), = grf.branches.items()
-        return graphs.StepParts(None, {name: lambda states, model, params: (
-            torque.compute_joint_torques(
-                solve(plan(states, model, params), model, params), params))})
-
-    def branch(solve):
-        def run(p, params):
-            states, bad = solve(p, params)
-            return torque.compute_joint_torques(states, params), bad
-        return run
-
-    return graphs.StepParts(
-        lambda states, model, params: grf.pre(plan(states, model, params),
-                                              model, params),
-        {name: branch(fn) for name, fn in grf.branches.items()},
-        grf.read, grf.recheck)
+    """:func:`control_step` (horizon 10) of one robot as ``graphs.Stages``
+    over ``(states, model, params)``: plan -> swing -> :func:`grf_parts`
+    -> torques; either composition returns (states,). ``dt`` is a
+    float."""
+    return graphs.nest(grf_parts(solver_type, settings, use_terrain_adapt,
+                                 warm_settings, warm_mode),
+                       _planned(dt), _torques)
 
 
 def run_tick(step, args, stats=None):
-    """One batch-1 tick through ``step`` (``graphs.make_step``): a
-    ``graphs.CapturedStep`` of an unrouted tick, or a ``graphs.RoutedStep``
-    (a route read, its branch, and the health read and re-solve where
-    :func:`grf_routing` asks for them). Returns the branch's outputs
-    without the health flag; counts the routes into ``stats``."""
-    if isinstance(step, graphs.CapturedStep):
-        return step(*args)
-    keys, out = step(*args)
-    for key in keys:
-        _count(stats, "cold" if key == "plain" else key)
-    return out[:-1]
+    """One tick through ``step`` (a ``graphs.StagedStep``): counts the
+    routes its rule took into ``stats`` (:func:`routed_rule`, one robot;
+    :func:`batched_routing`, a batch) and returns its outputs."""
+    routes, out = step(*args)
+    for route in routes:
+        _count(stats, route)
+    return out
 
 
 def compute_grf_mpc_stagewise(states, model, params,
@@ -700,40 +718,58 @@ def _count(stats, route, n=1):
         stats[route] = stats.get(route, 0) + n
 
 
-def compute_grf_mpc_batched(states, model, params,
-                            settings=admm.ADMMSettings(),
-                            use_terrain_adapt=True,
-                            warm_settings=WARM_SETTINGS,
-                            robust=False, compact_k=128,
-                            window_settings=None, stats=None):
-    """Batched MPC GRF solve with batch-level transition routing and
-    per-scenario cold-solve compaction (the JAX package's
-    ``compute_grf_mpc_batched``):
+class BatchedPre(NamedTuple):
+    """What the routes of :func:`compute_grf_mpc_batched` read."""
+    states: types.CtrlState      # after terrain adaptation
+    lazy: srb.LazyCondensedQP
+    warm_in: admm.WarmState      # the carry after flip repair
+    transition: torch.Tensor     # (B,) bool: the a-priori cold flags
 
-    - no flags: the warm (or, in a post-flip window, the long-window) base
-      program, plus the a-posteriori residual health gate;
-    - 1..compact_k flags (transitions and health rejects): the base
-      program for all, then the flagged scenarios gathered into a
-      (compact_k, ...) sub-batch, solved cold and scattered back;
-    - more flags: the whole batch solved cold (skipping the base program
-      when the a-priori transition count alone overflows).
 
-    The routing decisions are host branches: the tick reads
-    (sum(transition), any(window)) in one device-to-host copy before the
-    base program and the flag count in one more after it.
+class BatchedBase(NamedTuple):
+    """The base program's result, which the routes after it read."""
+    x_sol: torch.Tensor
+    warm_out: admm.WarmState
+    bad: torch.Tensor            # (B,) bool: the health gate's rejects
+    flags: torch.Tensor          # (B,) bool: transition | bad
 
-    Args:
-      states: batched CtrlState; model, params: shared.
-      compact_k: size of the gathered cold sub-batch (clamped to the
-        batch); 0 routes every mixed tick whole-batch cold.
-      stats: optional dict; the route taken ("warm", "window", "compact",
-        "cold" or "robust") is counted into it.
 
-    Returns:
-      the updated batched CtrlState.
-    """
-    states, lazy = _condensed(states, model, params, use_terrain_adapt)
-    warm_in, transition, window = _transition_test(states, lazy, params)
+def grf_batched_parts(settings=admm.ADMMSettings(), use_terrain_adapt=True,
+                      warm_settings=WARM_SETTINGS, robust=False,
+                      compact_k=128, window_settings=None):
+    """:func:`compute_grf_mpc_batched` as ``graphs.Stages`` over
+    ``(states, model, params)``, routed by :func:`batched_routing`. Each
+    part is fixed-shape: the whole batch, or the ``compact_k`` sub-batch
+    gathered on the device.
+
+    - "pre": the lazy condensation and the transition test -> (BatchedPre,
+      the (2,) counts (transitions, window flags): the first host read);
+    - "warm", "window": a base program on the whole batch -> (BatchedBase,
+      the flag count: the second host read);
+    - "cold": the whole batch cold a priori (no base program), and after
+      each base "<base>.none" (its result), "<base>.compact" (the flagged
+      scenarios re-solved cold on the gathered sub-batch, scattered over
+      it; not with ``compact_k`` 0) and "<base>.cold" (the whole batch
+      cold, the rejected carries neutralized): each -> (the states after
+      the GRF solve,).
+
+    With ``robust`` the step is one part, "robust", whose rule names
+    that route."""
+    cold_branch, warm_branch, window_branch = _grf_branches(
+        settings, warm_settings, window_settings)
+
+    def tested(args):
+        states, model, params = args[:3]
+        states, lazy = _condensed(states, model, params, use_terrain_adapt)
+        warm_in, transition, window = _transition_test(states, lazy, params)
+        return BatchedPre(states, lazy, warm_in, transition), window
+
+    def pre(args, mids):
+        p, window = tested(args)
+        return p, torch.stack([p.transition.sum(), window.sum()])
+
+    def finish(p, x_sol, warm_out):
+        return (_finish_grf(p.states, x_sol, warm_out, p.lazy.gradient),)
 
     if robust:
         # uniform robust warm program: the scaled-schedule refinement
@@ -742,56 +778,57 @@ def compute_grf_mpc_batched(states, model, params,
             schulz_l0_refine=(warm_settings.schulz_l0_refine
                               if warm_settings.schulz_l0_refine > 0
                               else 1e-4))
-        _, warm_branch, _ = _grf_branches(settings, robust_settings,
-                                          window_settings)
-        x_sol, warm_out, _ = warm_branch(lazy, warm_in)
-        _count(stats, "robust")
-        return _finish_grf(states, x_sol, warm_out, lazy.gradient)
+        _, robust_branch, _ = _grf_branches(settings, robust_settings,
+                                            window_settings)
 
-    cold_branch, warm_branch, window_branch = _grf_branches(
-        settings, warm_settings, window_settings)
-    k = min(compact_k, transition.shape[0])
+        def solve(args, mids):
+            p, _ = tested(args)
+            x_sol, warm_out, _ = robust_branch(p.lazy, p.warm_in)
+            return finish(p, x_sol, warm_out)
+        return graphs.Stages({"robust": (solve, ())},
+                             lambda run: (("robust",), run("robust")))
 
-    def neutralize(warm, bad):
+    def base(branch):
+        def run(args, mids):
+            (p, _), = mids
+            x_sol, warm_out, bad = branch(p.lazy, p.warm_in)
+            flags = p.transition | bad
+            return BatchedBase(x_sol, warm_out, bad, flags), flags.sum()
+        return run
+
+    def neutralize(p, bad):
         # a health-rejected carry is garbage by construction: its cold
         # re-solve starts from zero primal/dual
-        z = (bad & ~transition)[:, None].to(warm.x.dtype)
+        warm = p.warm_in
+        z = (bad & ~p.transition)[:, None].to(warm.x.dtype)
         return warm._replace(x=warm.x * (1.0 - z), y=warm.y * (1.0 - z))
 
-    def cold_all(warm):
-        _count(stats, "cold")
-        x, w, _ = cold_branch(lazy, warm)
-        return x, w
+    def cold_prior(args, mids):
+        (p, _), = mids
+        x_sol, warm_out, _ = cold_branch(p.lazy, p.warm_in)
+        return finish(p, x_sol, warm_out)
 
-    # device-to-host sync 1 of at most 2 per tick
-    n_trans, n_window = torch.stack([transition.sum(),
-                                     window.sum()]).tolist()
-    any_window = n_window > 0
-    if n_trans > k:
-        # a-priori overflow (synchronized flips, mode switches) skips the
-        # base program entirely
-        x_sol, warm_out = cold_all(warm_in)
-        return _finish_grf(states, x_sol, warm_out, lazy.gradient)
+    def none(args, mids):
+        (p, _), (b, _) = mids
+        return finish(p, b.x_sol, b.warm_out)
 
-    # the post-flip window promotion is batch-level: the window flag comes
-    # from gait counters that advance identically across a batch
-    base = window_branch if any_window else warm_branch
-    x_sol, warm_out, bad = base(lazy, warm_in)
-    flags = transition | bad
-    n_flag = int(flags.sum())           # device-to-host sync 2
-    if n_flag > k:
-        x_sol, warm_out = cold_all(neutralize(warm_in, bad))
-    elif n_flag > 0:
+    def cold_after(args, mids):
+        (p, _), (b, _) = mids
+        x_sol, warm_out, _ = cold_branch(p.lazy, neutralize(p, b.bad))
+        return finish(p, x_sol, warm_out)
+
+    def compact(args, mids):
         # gather the flagged scenarios into a static-k cold sub-batch and
         # scatter its results over the base ones; a stable descending sort
         # of the 0/1 flags lists flagged indices first, ascending, like
         # jax.lax.top_k; `valid` masks the fill
-        _count(stats, "compact")
-        warm_fixed = neutralize(warm_in, bad)
-        idx = torch.sort(flags.to(torch.int32), descending=True,
+        (p, _), (b, _) = mids
+        k = min(compact_k, p.transition.shape[0])
+        warm_fixed = neutralize(p, b.bad)
+        idx = torch.sort(b.flags.to(torch.int32), descending=True,
                          stable=True)[1][:k]
-        x_c, w_c, _ = cold_branch(_take(lazy, idx), _take(warm_fixed, idx))
-        valid = flags[idx]
+        x_c, w_c, _ = cold_branch(_take(p.lazy, idx), _take(warm_fixed, idx))
+        valid = b.flags[idx]
 
         def merge(full, sub):
             v = valid.reshape((k,) + (1,) * (sub.dim() - 1))
@@ -799,12 +836,104 @@ def compute_grf_mpc_batched(states, model, params,
             out[idx] = torch.where(v, sub, full[idx])
             return out
 
-        x_sol = merge(x_sol, x_c)
-        warm_out = admm.WarmState(*[merge(a, b)
-                                    for a, b in zip(warm_out, w_c)])
-    else:
-        _count(stats, "window" if any_window else "warm")
-    return _finish_grf(states, x_sol, warm_out, lazy.gradient)
+        return finish(p, merge(b.x_sol, x_c), admm.WarmState(
+            *[merge(a, c) for a, c in zip(b.warm_out, w_c)]))
+
+    parts = {"pre": (pre, ()), "warm": (base(warm_branch), ("pre",)),
+             "window": (base(window_branch), ("pre",)),
+             "cold": (cold_prior, ("pre",))}
+    ends = {"none": none, "cold": cold_after}
+    if compact_k > 0:
+        ends["compact"] = compact
+    for name in ("warm", "window"):
+        for end, fn in ends.items():
+            parts[f"{name}.{end}"] = (fn, ("pre", name))
+    return graphs.Stages(parts, batched_routing(compact_k))
+
+
+def batched_routing(compact_k):
+    """The routing rule of :func:`compute_grf_mpc_batched` over the parts of
+    :func:`grf_batched_parts`, which its plain composition and the
+    captured batched tick both follow: a rule ``rule(run)`` -> (the
+    tick's route, its outputs).
+
+    - no flags: the warm (or, in a post-flip window, the long-window) base
+      program, plus the a-posteriori residual health gate;
+    - 1..k flags (transitions and health rejects), k ``compact_k``
+      clamped to the batch: the base program for all, then the flagged
+      scenarios solved cold on the gathered k sub-batch;
+    - more flags: the whole batch solved cold (skipping the base program
+      when the a-priori transition count alone overflows).
+
+    The rule names one route, ("warm",), ("window",), ("compact",) or
+    ("cold",), and reads the device twice at most."""
+    def rule(run):
+        p, counts = run("pre")
+        # device-to-host sync 1 of at most 2 per tick
+        n_trans, n_window = counts.tolist()
+        k = min(compact_k, p.transition.shape[0])
+        if n_trans > k:
+            # a-priori overflow (synchronized flips, mode switches) skips
+            # the base program entirely
+            return ("cold",), run("cold")
+        # the post-flip window promotion is batch-level: the window flag
+        # comes from gait counters that advance identically across a batch
+        base = "window" if n_window > 0 else "warm"
+        _, n_flag = run(base)
+        n_flag = int(n_flag)                # device-to-host sync 2
+        if n_flag > k:
+            return ("cold",), run(f"{base}.cold")
+        if n_flag > 0:
+            return ("compact",), run(f"{base}.compact")
+        return (base,), run(f"{base}.none")
+    return rule
+
+
+def compute_grf_mpc_batched(states, model, params,
+                            settings=admm.ADMMSettings(),
+                            use_terrain_adapt=True,
+                            warm_settings=WARM_SETTINGS,
+                            robust=False, compact_k=128,
+                            window_settings=None, stats=None):
+    """Batched MPC GRF solve with batch-level transition routing and
+    per-scenario cold-solve compaction (the JAX package's
+    ``compute_grf_mpc_batched``): the plain composition of
+    :func:`grf_batched_parts`, routed by :func:`batched_routing`.
+
+    The routing decisions are host branches: the tick reads
+    (sum(transition), sum(window)) in one device-to-host copy before the
+    base program and the flag count in one more after it.
+
+    Args:
+      states: batched CtrlState; model, params: shared.
+      compact_k: size of the gathered cold sub-batch (clamped to the
+        batch); 0 routes every mixed tick whole-batch cold.
+      robust: the uniform robust warm program instead: the scaled-schedule
+        refinement rebuilds basin-rejected carries per scenario, no cold
+        branch.
+      stats: optional dict; the route taken ("warm", "window", "compact",
+        "cold" or "robust") is counted into it.
+
+    Returns:
+      the updated batched CtrlState.
+    """
+    (route,), (states,) = graphs.compose_stages(
+        grf_batched_parts(settings, use_terrain_adapt, warm_settings,
+                          robust, compact_k, window_settings),
+        states, model, params)
+    _count(stats, route)
+    return states
+
+
+def tick_batched_parts(dt, settings=admm.ADMMSettings(),
+                       use_terrain_adapt=True, warm_settings=WARM_SETTINGS,
+                       robust=False, compact_k=128):
+    """:func:`control_step_batched` as ``graphs.Stages`` over ``(states,
+    model, params)``: plan -> swing -> :func:`grf_batched_parts` ->
+    torques. ``dt`` is a float."""
+    return graphs.nest(grf_batched_parts(settings, use_terrain_adapt,
+                                         warm_settings, robust, compact_k),
+                       _planned(dt), _torques)
 
 
 def _finish_grf(state, grf_x, warm_out, grad_carry):
@@ -838,20 +967,18 @@ def control_step_batched(states, model, params, dt,
                          warm_settings=WARM_SETTINGS, robust=False,
                          compact_k=128, stats=None):
     """One controller tick for a batch: plan -> swing -> routed MPC GRF
-    solve (:func:`compute_grf_mpc_batched`) -> torques.
+    solve (:func:`compute_grf_mpc_batched`) -> torques, the stages of
+    :func:`tick_batched_parts` run eagerly.
 
     Pins true-float32 matmuls first (see ``utils/device.py``). ``settings``
     are the cold transition-solve settings: polished ones take the dense
     solve (K3), the others the segmented lazy solve (K1).
     """
-    pin_f32_matmuls()
-    states = gait.update_plan(states, params, model)
-    states = swing.generate_swing_legs_ctrl(states, params, dt)
-    states = compute_grf_mpc_batched(states, model, params, settings,
-                                     use_terrain_adapt, warm_settings,
-                                     robust=robust, compact_k=compact_k,
-                                     stats=stats)
-    return torque.compute_joint_torques(states, params)
+    args = _planned(float(dt))((states, model, params))
+    states = compute_grf_mpc_batched(*args, settings, use_terrain_adapt,
+                                     warm_settings, robust=robust,
+                                     compact_k=compact_k, stats=stats)
+    return _torques(args, (states,))[0]
 
 
 def control_step(states, model, params, dt, solver_type=MPC,

@@ -52,30 +52,15 @@ def sensor_log_from_arrays(dtype=torch.float32, device=None, **kw):
 def replay_parts(dt, solver_type=controller.MPC,
                  settings=admm.ADMMSettings(), use_terrain_adapt=True,
                  estimate=True):
-    """:func:`replay_rollout`'s tick as ``graphs.StepParts`` over
-    ``(state, sensors, model, params)``: ``controller.tick_parts`` with the
-    sensor update before its ``pre``; each branch returns (state, bad),
-    the balance QP's one part (state,). ``dt`` is a float."""
-    ctrl = controller.tick_parts(dt, solver_type, settings,
-                                 use_terrain_adapt)
-
-    def sense(state, sensors, model):
-        return controller.sensor_update(state, model, sensors, dt,
-                                        estimate=estimate)
-
-    if ctrl.pre is None:
-        (name, fn), = ctrl.branches.items()
-
-        def tick(state, sensors, model, params):
-            return (fn(sense(state, sensors, model), model, params),)
-        return graphs.StepParts(None, {name: tick})
-
-    def pre(state, sensors, model, params):
-        return ctrl.pre(sense(state, sensors, model), model, params)
-
-    return ctrl._replace(pre=pre, branches={
-        name: (lambda state, sensors, model, params, p, fn=fn: fn(p, params))
-        for name, fn in ctrl.branches.items()})
+    """:func:`replay_rollout`'s tick as ``graphs.Stages`` over ``(state,
+    model, params, sensors)``: ``controller.tick_parts`` after the sensor
+    update; either composition returns (state,). ``dt`` is a float."""
+    return graphs.nest(
+        controller.tick_parts(dt, solver_type, settings, use_terrain_adapt),
+        lambda args: (controller.sensor_update(args[0], args[1], args[3], dt,
+                                               estimate=estimate),
+                      args[1], args[2]),
+        lambda args, out: out)
 
 
 def replay_rollout(ctrl_state, model, params, log, dt,
@@ -114,7 +99,7 @@ def replay_rollout(ctrl_state, model, params, log, dt,
                 state, model, params, dt, solver_type=solver_type,
                 settings=settings, use_terrain_adapt=use_terrain_adapt)
         else:
-            args = (state, sensors, model, params)
+            args = (state, model, params, sensors)
             if step is None:
                 step = rollout.cached_step(config, replay_parts(*config[1:]),
                                            args)

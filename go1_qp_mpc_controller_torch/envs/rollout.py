@@ -7,7 +7,10 @@ torques, then one plant step. The JAX ``lax.scan`` becomes a Python loop.
 Both rollouts run B robots at once:
 
 - :func:`rollout_batched` routes the GRF solve over the whole batch
-  (``controller.control_step_batched``), the batched-sweep program;
+  (``controller.control_step_batched``), the batched-sweep program; on
+  the card each tick replays captured CUDA graphs
+  (:func:`tick_batched_parts`: fixed-shape parts between the routing's
+  two host reads);
 - :func:`rollout` gives each robot the per-scenario semantics of the JAX
   ``rollout`` (``controller.control_step``): MPC or balance-QP stance
   control, each scenario routed on its own. At batch 1 it is the
@@ -146,91 +149,118 @@ def _run(carry, model, params, num_steps, dt, command_fn, estimate,
     return carry, _stacked(records)
 
 
+def _sensed(dt, estimate):
+    """The sensor half (:func:`_sense`) as ``graphs.nest``'s ``enter`` over
+    ``(carry, model, params, *ground)``."""
+    return lambda args: (_sense(args[0], args[1], dt, estimate),) + args[1:3]
+
+
+def _planted(dt):
+    """The plant step (:func:`_plant`) as ``graphs.nest``'s ``leave`` on a
+    controller part's (states, ...): (carry, record, ...)."""
+    def leave(args, out):
+        ground = args[3] if len(args) > 3 else None
+        return (*_plant(args[0], out[0], args[1], dt, ground), *out[1:])
+    return leave
+
+
 def tick_parts(dt, solver_type=controller.MPC,
                settings=admm.ADMMSettings(), estimate=True,
                use_terrain_adapt=True,
                warm_settings=controller.WARM_SETTINGS, warm_mode="auto"):
     """:func:`rollout`'s per-scenario tick (the horizon-10 MPC or the
-    balance QP) as ``graphs.StepParts`` over ``(carry, model, params,
+    balance QP) as ``graphs.Stages`` over ``(carry, model, params,
     *ground)`` (``ground``: the terrain coefficients, when there are any):
-    ``controller.tick_parts`` with the sensor half (:func:`_sense`) before
-    its ``pre`` and the plant step after each branch, which returns
-    (carry, record, bad); the balance QP's one part returns (carry,
-    record). :func:`rollout` captures them at batch 1 on the card. ``dt``
-    is a float."""
+    ``controller.tick_parts`` between the sensor half (:func:`_sense`) and
+    the plant step; either composition returns (carry, record).
+    :func:`rollout` captures them at batch 1 on the card. ``dt`` is a
+    float."""
     dt = float(dt)
-    ctrl = controller.tick_parts(dt, solver_type, settings,
-                                 use_terrain_adapt, warm_settings, warm_mode)
-    ground = lambda extra: extra[0] if extra else None
-    if ctrl.pre is None:
-        (name, fn), = ctrl.branches.items()
-
-        def tick(carry, model, params, *extra):
-            states = fn(_sense(carry, model, dt, estimate), model, params)
-            return _plant(carry, states, model, dt, ground(extra))
-        return graphs.StepParts(None, {name: tick})
-
-    def pre(carry, model, params, *extra):
-        return ctrl.pre(_sense(carry, model, dt, estimate), model, params)
-
-    def branch(fn):
-        def run(carry, model, params, *rest):
-            *extra, p = rest
-            states, bad = fn(p, params)
-            return (*_plant(carry, states, model, dt, ground(extra)), bad)
-        return run
-
-    return ctrl._replace(pre=pre, branches={
-        name: branch(fn) for name, fn in ctrl.branches.items()})
+    return graphs.nest(
+        controller.tick_parts(dt, solver_type, settings, use_terrain_adapt,
+                              warm_settings, warm_mode),
+        _sensed(dt, estimate), _planted(dt))
 
 
-# one robot's captured ticks by static configuration (most recently used
-# last), so that many short rollouts of one configuration capture once;
-# _CAPTURES holds each key's (captures, card memory its last capture
-# reserved), which chip_smoke.py prints. chip_smoke.py's phases use 6
+def tick_batched_parts(dt, settings=admm.ADMMSettings(), estimate=True,
+                       use_terrain_adapt=True,
+                       warm_settings=controller.WARM_SETTINGS, robust=False,
+                       compact_k=128):
+    """:func:`rollout_batched`'s tick as ``graphs.Stages`` over ``(carry,
+    model, params, *ground)``: ``controller.tick_batched_parts`` between
+    the sensor half (:func:`_sense`) and the plant step; its composition
+    returns (carry, record). :func:`rollout_batched` captures them on the
+    card. ``dt`` is a float."""
+    dt = float(dt)
+    return graphs.nest(
+        controller.tick_batched_parts(dt, settings, use_terrain_adapt,
+                                      warm_settings, robust, compact_k),
+        _sensed(dt, estimate), _planted(dt))
+
+
+# captured ticks by static configuration (most recently used last), so
+# that many short rollouts of one configuration capture once; _CAPTURES
+# holds each key's (captures, card memory its last capture reserved),
+# which chip_smoke.py prints. chip_smoke.py's phases use 6 one-robot
 # configurations, none captured twice, each reserving up to ~170 MiB on
-# an H100: _KEEP leaves room for two more
+# an H100: _KEEP leaves room for two more. A batched tick's capture holds
+# the batch's carry several times over (GiBs at 4096 robots): at most
+# _KEEP_BATCHED of those are kept, the older evicted before a capture
 _CAPTURED = collections.OrderedDict()
 _CAPTURES = {}
 _KEEP = 8
+_KEEP_BATCHED = 1
+
+
+def _batched(key):
+    """Whether a cache key's step is :func:`rollout_batched`'s tick."""
+    return key[0][0] == "batched"
 
 
 def cached_step(config, parts, args):
-    """``graphs.make_step`` of ``parts``; on the card kept under the static
+    """``graphs.StagedStep`` of ``parts``; on the card kept under the static
     ``config`` and the shapes, dtypes and device of ``args``, the
-    ``_KEEP`` most recently used. The steps are shared: two callers of
-    one configuration, in two threads or one inside the other, would
-    overwrite each other's buffers."""
+    ``_KEEP`` most recently used one-robot steps and the
+    ``_KEEP_BATCHED`` most recently used batched ones. The steps are
+    shared: two callers of one configuration, in two threads or one
+    inside the other, would overwrite each other's buffers."""
     leaves, _ = graphs.flatten(args)
     if not leaves[0].is_cuda:
-        return graphs.make_step(parts, *args)
+        return graphs.StagedStep(parts, *args)
     key = (config, leaves[0].device,
            tuple((t.shape, t.dtype) for t in leaves))
     step = _CAPTURED.pop(key, None)
     if step is None:
+        # the steps evicted first, so that their memory is free for this
+        # capture
+        kind = _batched(key)
+        same = [k for k in _CAPTURED if _batched(k) == kind]
+        for old in same[:max(0, len(same) + 1
+                             - (_KEEP_BATCHED if kind else _KEEP))]:
+            del _CAPTURED[old]
         # a capture empties the allocator's cache first (torch.cuda.graph):
         # so does this, so that the difference is the capture's own
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(key[1])
-        step = graphs.make_step(parts, *args)
+        step = graphs.StagedStep(parts, *args)
         _CAPTURES[key] = (_CAPTURES.get(key, (0, 0))[0] + 1,
                           torch.cuda.memory_reserved(key[1]) - reserved)
     _CAPTURED[key] = step
-    while len(_CAPTURED) > _KEEP:
-        _CAPTURED.popitem(last=False)
     return step
 
 
-def _run_one(carry, model, params, num_steps, command_fn, ground_coef,
-             stats, parts, config):
-    """:func:`_run` for one robot through ``parts`` (:func:`tick_parts`):
-    on the card each tick replays captured steps (kept under ``config``),
-    on the CPU it is their plain composition."""
+def _run_captured(carry, model, params, num_steps, command_fn, ground_coef,
+                  stats, parts, config):
+    """:func:`_run` through ``parts`` (:func:`tick_parts` for one robot,
+    :func:`tick_batched_parts` for a batch): on the card each tick
+    replays captured steps (kept under ``config``), on the CPU it is their
+    plain composition."""
     extra = () if ground_coef is None else (torch.as_tensor(
         ground_coef, dtype=carry.sim.root_pos.dtype,
         device=carry.sim.root_pos.device),)
-    step = None
-    records = []
+    if num_steps < 1:
+        raise ValueError("a rollout needs num_steps >= 1")
+    step = trace = None
     for step_idx in range(num_steps):
         if command_fn is not None:
             carry = carry._replace(ctrl=command_fn(step_idx, carry.ctrl))
@@ -239,10 +269,13 @@ def _run_one(carry, model, params, num_steps, command_fn, ground_coef,
             step = cached_step(config, parts, args)
         # the outputs are the graphs' buffers, which the next replay
         # overwrites: the carry goes back in as the next inputs (copied
-        # before the replay), the record is copied out
+        # before the replay), the record is copied out into the trace
         carry, record = controller.run_tick(step, args, stats)
-        records.append(graphs.clone(record))
-    return graphs.clone(carry), _stacked(records)
+        if trace is None:
+            trace = type(record)(*[t.new_empty((num_steps,) + t.shape)
+                                   for t in record])
+        graphs.copy_all([t[step_idx] for t in trace], record)
+    return graphs.clone(carry), trace
 
 
 def rollout(carry, model, params, num_steps, dt,
@@ -286,8 +319,8 @@ def rollout(carry, model, params, num_steps, dt,
     if carry.sim.root_pos.shape[0] == 1 and not stagewise:
         config = (float(dt), solver_type, settings, estimate,
                   use_terrain_adapt, warm_settings, warm_mode)
-        return _run_one(carry, model, params, num_steps, command_fn,
-                        ground_coef, stats, tick_parts(*config), config)
+        return _run_captured(carry, model, params, num_steps, command_fn,
+                             ground_coef, stats, tick_parts(*config), config)
     return _run(carry, model, params, num_steps, dt, command_fn, estimate,
                 ground_coef, lambda ctrl: controller.control_step(
                     ctrl, model, params, float(dt), solver_type=solver_type,
@@ -305,6 +338,16 @@ def rollout_batched(carry, model, params, num_steps, dt,
     """Run ``num_steps`` closed-loop ticks over a batched carry with the
     batch-level GRF routing (``controller.control_step_batched``).
 
+    A tick is the sensor half, ``control_step_batched`` and the plant
+    step. On the card it replays them from captured CUDA graphs
+    (:func:`tick_batched_parts`): the sensor half up to the transition
+    count, its host read, a base program up to the flag count, its host
+    read, and one terminal route (two graphs when the transitions alone
+    overflow the compacted sub-batch); the captures are kept by static
+    configuration and shared, so a rollout on the card is not thread-safe
+    (nor reentrant from ``command_fn``). Elsewhere the stages run eagerly.
+    Both give the same bits.
+
     Args:
       carry: RolloutCarry from :func:`init_carry`.
       dt: control / plant period (the reference's 2 ms loop), a float.
@@ -318,6 +361,14 @@ def rollout_batched(carry, model, params, num_steps, dt,
     Returns:
       (carry, RolloutTrace) with trace leaves (T, B, ...).
     """
+    if carry.sim.root_pos.is_cuda:
+        config = ("batched", float(dt), settings, estimate,
+                  use_terrain_adapt, warm_settings, robust, compact_k)
+        return _run_captured(carry, model, params, num_steps, command_fn,
+                             ground_coef, stats,
+                             tick_batched_parts(*config[1:]), config)
+    # the same stages run eagerly, through the GRF solve's own entry
+    # point, compute_grf_mpc_batched, which the parts compose to the bit
     return _run(carry, model, params, num_steps, dt, command_fn, estimate,
                 ground_coef, lambda ctrl: controller.control_step_batched(
                     ctrl, model, params, float(dt), settings=settings,

@@ -211,26 +211,15 @@ class ControlLoop:
                     self.device))
 
     def _grf_parts(self):
-        """:meth:`grf_step` as ``graphs.StepParts`` over ``(state,
-        params)`` (``controller.grf_parts``); every part returns the
-        ``_GRF_FIELDS`` values (and the MPC branches the health flag)."""
-        grf = controller.grf_parts(self.solver, self.settings,
-                                   self.static.use_terrain_adapt)
-        fields = lambda st: tuple(getattr(st, f) for f in self._GRF_FIELDS)
-        if grf.pre is None:
-            (name, fn), = grf.branches.items()
-            return graphs.StepParts(None, {name: lambda state, params: (
-                fields(fn(state, self.model, params)),)})
-
-        def branch(fn):
-            def run(state, params, p):
-                states, bad = fn(p, params)
-                return fields(states), bad
-            return run
-
-        return grf._replace(
-            pre=lambda state, params: grf.pre(state, self.model, params),
-            branches={name: branch(fn) for name, fn in grf.branches.items()})
+        """:meth:`grf_step` as ``graphs.Stages`` over ``(state, params)``
+        (``controller.grf_parts``); either composition returns the
+        ``_GRF_FIELDS`` values in a 1-tuple."""
+        return graphs.nest(
+            controller.grf_parts(self.solver, self.settings,
+                                 self.static.use_terrain_adapt),
+            lambda args: (args[0], self.model, args[1]),
+            lambda args, out: (tuple(getattr(out[0], f)
+                                     for f in self._GRF_FIELDS), *out[1:]))
 
     def warmup(self, dual=True):
         """Capture every step the loops run (on the card: CUDA graphs, each
@@ -261,14 +250,14 @@ class ControlLoop:
                 self._fast = graphs.CapturedStep(self.fast_step, self.state,
                                                  sensors, self.params)
                 st = self._fast(self.state, sensors, self.params)
-            self._grf = graphs.make_step(self._grf_parts(), st,
-                                         self.params)
+            self._grf = graphs.StagedStep(self._grf_parts(), st,
+                                          self.params)
         else:
-            self._full = graphs.make_step(
+            self._full = graphs.StagedStep(
                 replay.replay_parts(self.main_period, self.solver,
                                     self.settings,
                                     self.static.use_terrain_adapt),
-                self.state, sensors, self.model, self.params)
+                self.state, self.model, self.params, sensors)
         synchronize(self.device)
         if dual and self.estimate_in_feed:
             self._est_ready = self._make_estimator()
@@ -307,8 +296,8 @@ class ControlLoop:
                     t0 = time.perf_counter()
                     with self._lock:
                         self.state = graphs.clone(controller.run_tick(
-                            self._full, (self.state, self._sensor_data(s),
-                                         self.model, self.params))[0])
+                            self._full, (self.state, self.model, self.params,
+                                         self._sensor_data(s)))[0])
                     tau = self.state.joint_torques[0].to(
                         "cpu", torch.float64).numpy()
                     self.bridge.push_command(tau)

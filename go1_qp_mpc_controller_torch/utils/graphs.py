@@ -2,13 +2,14 @@
 
 At batch 1 a controller step is hundreds of tiny operations, each
 dispatched from Python; the host loop's four threads share one GIL, so
-that dispatch, not the card, sets their speed. ``CapturedStep`` records
-such a step once and replays it with one call, the port's counterpart of
-the JAX package's jitted steps; ``RoutedStep`` is the counterpart of a
-``lax.switch`` (and a ``lax.cond`` after it): a captured step that
-computes a route code, one host read of it, and one captured step per
-branch (:class:`StepParts` describes the parts, :func:`route` is the
-routing rule that both the captured and the plain composition follow).
+that dispatch, not the card, sets their speed; a batched tick is ~1,000
+of them. ``CapturedStep`` records such a step once and replays it with
+one call, the port's counterpart of the JAX package's jitted steps;
+``StagedStep`` is the counterpart of a jitted step with ``lax.switch`` /
+``lax.cond`` inside: parts that read each other's outputs, captured in
+one memory pool, and a host rule that reads the device between them and
+picks the parts to replay (:class:`Stages`; :func:`compose_stages` is
+the plain composition that the rule follows on the CPU).
 
 A step may launch the counted kernels (``ops/_build.KERNELS``). Capturing
 launches nothing, so the capture's moves of the wrappers' ``launches`` and
@@ -96,6 +97,20 @@ def merge_counts(total, delta):
     return total
 
 
+def copy_all(dsts, srcs):
+    """Copy each of ``srcs`` into its place in ``dsts``, one
+    ``_foreach_copy_`` a dtype: a list of one dtype takes the card's fused
+    multi-tensor copy, where a mixed list copies tensor by tensor (~5 us
+    of host time each, ~0.5 ms for a batched carry)."""
+    groups = {}
+    for dst, src in zip(dsts, srcs):
+        pair = groups.setdefault(dst.dtype, ([], []))
+        pair[0].append(dst)
+        pair[1].append(src)
+    for group_dsts, group_srcs in groups.values():
+        torch._foreach_copy_(group_dsts, group_srcs)
+
+
 def _storages(tensors):
     return {t.untyped_storage().data_ptr() for t in tensors}
 
@@ -131,65 +146,69 @@ def _rebuild(tree, items):
         parts)
 
 
-class StepParts(NamedTuple):
-    """A fixed-shape step in parts, the counterpart of a jitted
-    ``lax.switch`` followed by a ``lax.cond``; :func:`make_step` captures
-    them, :func:`compose` runs them plainly:
+class Stages(NamedTuple):
+    """A fixed-shape step in parts between host reads, the counterpart of
+    a jitted step with ``lax.switch`` / ``lax.cond`` inside;
+    :class:`StagedStep` captures the parts, :func:`compose_stages` runs
+    them plainly:
 
-    - ``pre(*args)`` -> (mid, route code), or None when the step does not
-      route (then ``branches`` holds its one part, ``fn(*args)``);
-    - ``read(code)``: the host read that names the branch;
-    - ``branches`` {key: fn(*args, mid) -> (outputs..., flag)};
-    - ``recheck`` {key: key}: a branch whose flag (its last output) takes
-      one more host read, and the branch that runs when it is set.
+    - ``parts`` {key: (fn, reads)}: ``fn(args, mids)`` -> outputs, where
+      ``args`` is the tuple of the step's arguments and ``mids`` the
+      outputs of the parts named in ``reads``, each listed before the
+      parts that read it. A part that reads others takes what it needs
+      from ``mids``: under :func:`nest` its ``args`` are the outer
+      step's;
+    - ``rule(run)`` -> (routes, outputs): the host side, which calls
+      ``run(key)`` (part ``key`` on the latest outputs of the parts it
+      reads, returning its outputs) in the order of ``parts``, reads what
+      it routes on, and names the routes it took in a tuple (empty for
+      an unrouted step).
     """
-    pre: object
-    branches: dict
-    read: object = None
-    recheck: dict = {}
+    parts: dict
+    rule: object
 
 
-def route(read, recheck, run, code):
-    """The host side of a routed step: ``run`` the branch ``read(code)``
-    names; when ``recheck`` names a further branch for it and the branch's
-    flag (its last output) is set, run that one too. Returns (the keys
-    run, the last one's outputs)."""
-    key = read(code)
-    out = run(key)
-    again = recheck.get(key)
-    if again is None or not bool(out[-1].any()):    # the flag's host read
-        return [key], out
-    return [key, again], run(again)
+def compose_stages(stages, *args):
+    """The plain composition of :class:`Stages` on ``args``, what
+    :class:`StagedStep` replays: (routes, outputs)."""
+    outs = {}
+
+    def run(key):
+        fn, reads = stages.parts[key]
+        outs[key] = fn(args, tuple(outs[r] for r in reads))
+        return outs[key]
+    return stages.rule(run)
 
 
-def compose(parts, *args):
-    """The plain composition of :class:`StepParts` on ``args``, what
-    :func:`make_step` replays: (the keys run, the outputs)."""
-    if parts.pre is None:
-        (key, fn), = parts.branches.items()
-        return [key], fn(*args)
-    mid, code = parts.pre(*args)
-    return route(parts.read, parts.recheck,
-                 lambda key: parts.branches[key](*args, mid), code)
+def _read_keys(parts):
+    return {r for _, reads in parts.values() for r in reads}
 
 
-def make_step(parts, *example_args):
-    """:class:`StepParts` captured on ``example_args``: a
-    :class:`CapturedStep` of an unrouted step's one part, else a
-    :class:`RoutedStep` (on the CPU, their plain composition)."""
-    if parts.pre is None:
-        (fn,) = parts.branches.values()
-        return CapturedStep(fn, *example_args)
-    return RoutedStep(parts, *example_args)
+def nest(stages, enter, leave):
+    """``stages`` as the middle of an outer step: its first parts (those
+    that read no other) run on ``enter(args)`` for the outer ``args``, and
+    the outputs of its last parts (those no other reads) go out as
+    ``leave(args, outputs)``, ``args`` the outermost step's arguments: a
+    ``leave`` nested inside finds the ones it reads where each ``enter``
+    around it keeps them."""
+    read = _read_keys(stages.parts)
+    parts = {}
+    for key, (fn, reads) in stages.parts.items():
+        if not reads:
+            fn = (lambda f: lambda args, mids: f(enter(args), mids))(fn)
+        if key not in read:
+            fn = (lambda f: lambda args, mids: leave(args, f(args, mids)))(fn)
+        parts[key] = (fn, reads)
+    return stages._replace(parts=parts)
 
 
-def _capture(body, device, shared, warmup=2):
+def _capture(body, device, shared, warmup=2, pool=None):
     """``body()`` recorded as a CUDA graph after ``warmup`` eager runs (on a
     side stream; their launches stay counted and are summed in
-    :data:`warmup_launches`). An output sharing memory with one of the
-    ``shared`` storages is copied inside the graph. Returns (graph, its
-    outputs, the launches each replay makes); a capture that fails
-    raises."""
+    :data:`warmup_launches`), in the memory ``pool`` (None: a pool of its
+    own). An output sharing memory with one of the ``shared`` storages is
+    copied inside the graph. Returns (graph, its outputs, the launches
+    each replay makes); a capture that fails raises."""
     modules = counters()
 
     def run():
@@ -226,7 +245,8 @@ def _capture(body, device, shared, warmup=2):
     collecting = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
             outputs = run()
     finally:
         if collecting:
@@ -257,7 +277,7 @@ class CapturedStep:
 
     ``args`` are (nested NamedTuples of) tensors of fixed shapes; Python
     numbers ``fn`` needs are closed over. Each call copies the arguments
-    into the graph's input buffers (one ``_foreach_copy_``) and replays on
+    into the graph's input buffers (:func:`copy_all`) and replays on
     the calling thread's current stream. The outputs are the graph's own
     buffers, overwritten by the next call: the caller copies what it keeps.
     An output that would share memory with an input buffer is copied
@@ -293,51 +313,75 @@ class CapturedStep:
         if shape != self._shape:
             raise ValueError("CapturedStep: the arguments' structure "
                              "differs from the captured one")
-        torch._foreach_copy_(self._inputs, flat)
+        copy_all(self._inputs, flat)
         _replay(self.graph, self.launches, warming)
         return self._outputs
 
 
-class RoutedStep:
-    """:class:`StepParts` as captured steps: ``pre`` -> one host read of
-    its route code -> one captured branch -> the flag's host read and the
-    ``recheck`` branch where the parts ask for it (:func:`route`).
+class StagedStep:
+    """:class:`Stages` as captured steps: each call copies its arguments
+    into the step's input buffers (:func:`copy_all`), then the rule
+    replays the parts it runs and makes its host reads between them.
 
-    ``pre`` is a :class:`CapturedStep`; every branch is captured at
-    construction, on the example arguments' ``mid`` whatever its route,
-    reading pre's own buffers (nothing is copied between them).
-    :meth:`run` replays a branch on the last call's ``mid``. On the CPU a
-    call is the plain composition (:func:`compose`).
+    Every part is captured at construction in the order of ``parts``, on
+    the example arguments, reading the output buffers of the parts it
+    reads; a part that others read is replayed once after its capture
+    (counted as warm-up), so that their captures' warm-up runs read real
+    data. The graphs share one memory pool, which needs the rule to run
+    the parts of a call in the order of ``parts``: a part captured later
+    never takes the memory of an earlier part's outputs, and a part
+    replayed writes only its own outputs and memory that every part
+    replayed before it in the call left free. The returned outputs are the
+    graphs' buffers, overwritten by the next call: the caller copies what
+    it keeps. An output of a last part that would share memory with an
+    input buffer is copied inside its graph, so that the outputs can go
+    back in as the next call's arguments. On the CPU a call is
+    :func:`compose_stages`.
     """
 
-    def __init__(self, parts, *example_args):
-        self.parts = parts
-        self.pre = CapturedStep(parts.pre, *example_args)
-        self._last = None
+    def __init__(self, stages, *example_args):
+        self.stages = stages
         self._graphs = None
-        if self.pre.graph is None:
+        flat, self._shape = flatten(example_args)
+        device = flat[0].device
+        if device.type != "cuda":
             return
-        args = _rebuild(example_args, iter(self.pre._inputs))
-        # pre's buffers hold real data for the branches' warm-up runs: a
-        # replay, counted as the captures' warm-up
-        mid, _ = self.pre._run(example_args, warming=True)
-        shared = _storages(self.pre._inputs)
-        device = self.pre._inputs[0].device
-        self._graphs = {
-            key: _capture(lambda fn=fn: fn(*args, mid), device, shared)
-            for key, fn in parts.branches.items()}
+        self._inputs = [t.clone() for t in flat]
+        args = _rebuild(example_args, iter(self._inputs))
+        read = _read_keys(stages.parts)
+        shared = _storages(self._inputs)
+        pool = torch.cuda.graph_pool_handle()
+        self._graphs = {}
+        for key, (fn, reads) in stages.parts.items():
+            mids = tuple(self._graphs[r][1] for r in reads)
+            graph, outputs, launches = self._graphs[key] = _capture(
+                lambda: fn(args, mids), device,
+                set() if key in read else shared, pool=pool)
+            if key in read:
+                _replay(graph, launches, warming=True)
 
     def __call__(self, *args):
-        """(the keys run, the last branch's outputs) for one step on
+        """(the rule's routes, the outputs it returns) for one step on
         ``args``."""
-        mid, code = self.pre(*args)
-        self._last = (*args, mid)
-        return route(self.parts.read, self.parts.recheck, self.run, code)
+        if self._graphs is None:
+            self._args, self._outs = args, {}
+            return self.stages.rule(self.run)
+        flat, shape = flatten(args)
+        if shape != self._shape:
+            raise ValueError("StagedStep: the arguments' structure differs "
+                             "from the captured one")
+        copy_all(self._inputs, flat)
+        return self.stages.rule(self.run)
 
     def run(self, key):
-        """Branch ``key`` on the last call's pre outputs."""
+        """Part ``key`` on the last call's arguments and the latest outputs
+        of the parts it reads (on the card a replay); returns its outputs,
+        on the card the graph's buffers."""
         if self._graphs is None:
-            return self.parts.branches[key](*self._last)
+            fn, reads = self.stages.parts[key]
+            self._outs[key] = fn(self._args,
+                                 tuple(self._outs[r] for r in reads))
+            return self._outs[key]
         graph, outputs, launches = self._graphs[key]
         _replay(graph, launches)
         return outputs
@@ -345,9 +389,8 @@ class RoutedStep:
 
 def clone(tree):
     """A copy of every tensor of ``tree`` (nested NamedTuples), made with
-    one ``_foreach_copy_`` into fresh tensors."""
+    :func:`copy_all` into fresh tensors."""
     leaves, _ = flatten(tree)
     copies = [torch.empty_like(t) for t in leaves]
-    if copies:
-        torch._foreach_copy_(copies, leaves)
+    copy_all(copies, leaves)
     return _rebuild(tree, iter(copies))

@@ -108,14 +108,14 @@ def _routed_reference(states, model, params, settings):
 def _split(states, model, params, settings):
     """The parts as the captured one-robot path runs them: pre, one route
     read, the route's solve on the whole batch, the health read and the
-    "health" solve when it is set (``graphs.route`` by
+    "health" solve when it is set (``controller.routed_rule`` by
     ``controller.grf_routing``), the finish."""
     _, read, recheck = t_ctrl.grf_routing(t_ctrl.WARM_SETTINGS)
     pre = t_ctrl.grf_mpc_pre(states, model, params, True)
     solves = t_ctrl.grf_mpc_branches(settings, t_ctrl.WARM_SETTINGS)
-    routes, (x_sol, warm_out, _) = graphs.route(
-        read, recheck, lambda key: solves[key](pre), pre.route)
-    return t_ctrl.grf_mpc_finish(pre, x_sol, warm_out), routes
+    run = lambda key: (pre, pre.route) if key == "pre" else solves[key](pre)
+    routes, (x_sol, warm_out) = t_ctrl.routed_rule(read, recheck)(run)
+    return t_ctrl.grf_mpc_finish(pre, x_sol, warm_out), list(routes)
 
 
 def _same_bits(got, want):
@@ -337,22 +337,26 @@ def test_count_delta_lists_only_what_moved():
 @pytest.mark.parametrize("a,keys", [(3.0, ["pos"]), (-1.0, ["neg"]),
                                     (-20.0, ["neg", "big"])])
 def test_routed_step_on_the_cpu_is_the_plain_composition(a, keys):
-    """On the CPU ``RoutedStep`` runs pre, reads the route, runs the branch
-    on pre's arguments and outputs and, where ``recheck`` names a further
-    branch and the flag is set, that one: ``graphs.compose``'s result;
-    :meth:`run` runs another branch on the same outputs."""
-    parts = graphs.StepParts(
-        lambda a, b: ((a + b,), (a > 0).to(torch.int64)),
-        {"neg": lambda a, b, mid: (mid[0] * -1.0, mid[0] < -10.0),
-         "pos": lambda a, b, mid: (mid[0] * 2.0, mid[0] < -10.0),
-         "big": lambda a, b, mid: (mid[0] * 0.0, mid[0] < -10.0)},
-        lambda code: ("neg", "pos")[int(code[0])], {"neg": "big"})
-    step = graphs.make_step(parts, torch.ones(1), torch.ones(1))
-    assert isinstance(step, graphs.RoutedStep)
+    """On the CPU a routed ``StagedStep`` runs pre, reads the route, runs
+    the branch on pre's outputs and, where ``recheck`` names a further
+    branch and the flag is set, that one (``controller.routed_rule``):
+    ``graphs.compose_stages``'s result; :meth:`run` runs another branch on
+    the same outputs."""
+    def branch(scale):
+        return (lambda args, mids: (mids[0][0][0] * scale,
+                                    mids[0][0][0] < -10.0), ("pre",))
+
+    stages = graphs.Stages(
+        {"pre": (lambda args, mids: ((args[0] + args[1],),
+                                     (args[0] > 0).to(torch.int64)), ()),
+         "neg": branch(-1.0), "pos": branch(2.0), "big": branch(0.0)},
+        t_ctrl.routed_rule(lambda code: ("neg", "pos")[int(code[0])],
+                           {"neg": "big"}))
+    step = graphs.StagedStep(stages, torch.ones(1), torch.ones(1))
     args = (torch.full((1,), a), torch.ones(1))
     got_keys, out = step(*args)
-    want_keys, want = graphs.compose(parts, *args)
-    assert got_keys == want_keys == keys
+    want_keys, want = graphs.compose_stages(stages, *args)
+    assert list(got_keys) == list(want_keys) == keys
     assert torch.equal(out[0], want[0])
     assert torch.equal(step.run("pos")[0], (args[0] + 1.0) * 2.0)
 
@@ -369,25 +373,25 @@ def test_warmup_builds_a_step_for_every_route(preset, dual):
     try:
         cl.warmup(dual=dual)
         step = cl._grf if dual else cl._full
+        assert isinstance(step, graphs.StagedStep)
         if static.solver == "qp":
-            assert isinstance(step, graphs.CapturedStep)
+            assert set(step.stages.parts) == {"qp"}
             assert cl._fast is not None
             out = t_ctrl.run_tick(step, (cl.state, cl.params))
             assert torch.isfinite(out[0][0]).all()
             return
-        assert isinstance(step, graphs.RoutedStep)
-        assert set(step.parts.branches) == {"warm", "window", "cold",
-                                            "health"}
+        assert set(step.stages.parts) == {"pre", "warm", "window", "cold",
+                                          "health"}
         args = ((cl.state, cl.params) if dual else
-                (cl.state, cl._sensor_data({
+                (cl.state, cl.model, cl.params, cl._sensor_data({
                     "quat": [1.0, 0, 0, 0], "acc": [0, 0, 9.8],
                     "gyro": np.zeros(3),
                     "joint_pos": cl.state.joint_pos[0].numpy(),
                     "joint_vel": np.zeros(12),
-                    "foot_force": np.full(4, 50.0)}), cl.model, cl.params))
+                    "foot_force": np.full(4, 50.0)})))
         keys, _ = step(*args)
-        assert keys == ["cold"]               # the young carry
-        for name in step.parts.branches:
+        assert keys == ("cold",)              # the young carry
+        for name in ("warm", "window", "cold", "health"):
             out = step.run(name)
             assert all(torch.isfinite(t).all()
                        for t in pytree.tree_leaves(out[0])

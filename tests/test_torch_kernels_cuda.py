@@ -38,7 +38,7 @@ from go1_qp_mpc_controller_torch.models import kinematics, srb, types
 from go1_qp_mpc_controller_torch.ops import admm, admm_iterations, ekf
 from go1_qp_mpc_controller_torch.ops import kkt_schulz, observe_ekf, qp
 from go1_qp_mpc_controller_torch.ops import schulz_batch
-from go1_qp_mpc_controller_torch.utils import rotations
+from go1_qp_mpc_controller_torch.utils import graphs, rotations
 
 pytestmark = pytest.mark.cuda
 F32 = torch.float32
@@ -218,6 +218,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         observe_ekf.observe_ekf(*args)
 
 
+def _ticks_launches(module, name):
+    """``module``'s launches since its counter and ``graphs``' records were
+    reset, less those of the eager warm-up runs of the captures made
+    since: the launches of the ticks themselves (graph replays)."""
+    return module.launches - graphs.warmup_launches.get(name, (0, {}))[0]
+
+
 def test_main_path_ticks_launch_both_kernels(card):
     model = types.default_robot_model(F32, card)
     params = types.default_ctrl_params(F32, card)
@@ -229,12 +236,14 @@ def test_main_path_ticks_launch_both_kernels(card):
     kkt_schulz.reset_launches()
     observe_ekf.reset_launches()
     admm_iterations.reset_launches()
+    graphs.reset_records()
     _, trace = rollout.rollout_batched(carry, model, params, 5, 0.002,
                                        settings=settings)
     torch.cuda.synchronize()
-    assert observe_ekf.launches == 5
-    assert kkt_schulz.launches >= 5
-    assert admm_iterations.launches >= 5       # every tick's ADMM loop
+    assert _ticks_launches(observe_ekf, "observe_ekf") == 5
+    assert _ticks_launches(kkt_schulz, "kkt_schulz") >= 5
+    # every tick's ADMM loop
+    assert _ticks_launches(admm_iterations, "admm_iterations") >= 5
     assert torch.isfinite(trace.foot_forces_grf).all()
 
 
@@ -829,11 +838,12 @@ def test_captured_runtime_steps_match_eager(card):
                                    "foot_force": np.full(4, 50.0)})
         close(cl._fast(cl.state, sensors, cl.params),
               cl.fast_step(cl.state, sensors, cl.params))
-        parts = cl._grf_parts()
-        mid, _ = parts.pre(cl.state, cl.params)
-        cl._grf(cl.state, cl.params)
-        for name, branch in parts.branches.items():
-            close(cl._grf.run(name), branch(cl.state, cl.params, mid))
+        parts = cl._grf_parts().parts
+        args = (cl.state, cl.params)
+        pre = parts["pre"][0](args, ())
+        cl._grf(*args)
+        for name in ("warm", "window", "cold", "health"):
+            close(cl._grf.run(name), parts[name][0](args, (pre,)))
     finally:
         cl.close()
 
@@ -870,11 +880,13 @@ def test_dense_paths_launch_k3_and_k6(card):
     params = types.default_ctrl_params(F32, card)
     carry = rollout.init_carry(model, params, 8, dtype=F32, device=card)
     schulz_batch.reset_launches()
+    graphs.reset_records()
     _, trace = rollout.rollout_batched(carry, model, params, 2, 0.002,
                                        settings=admm.ADMMSettings(
                                            seg_iters=25, segments=3))
     torch.cuda.synchronize()
-    assert schulz_batch.launches == 2 * 3     # two cold ticks, 3 segments
+    # two cold ticks, 3 segments
+    assert _ticks_launches(schulz_batch, "schulz_batch") == 2 * 3
     assert torch.isfinite(trace.foot_forces_grf).all()
 
     ops = _k1_operands(8, card)
