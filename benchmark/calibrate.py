@@ -54,8 +54,8 @@ def main(argv=None):
                 limits, control=side == "control")
             line = json.dumps({"workload": args.workload, "seed": seed,
                                "side": side, "correct": correct,
-                               "failed": cell.failed,
-                               "attempted": cell.attempted(),
+                               "failed_in_window": sum(
+                                   cell.tally.counts()),
                                "readings": readings,
                                "compared": compared})
             print(line, flush=True)

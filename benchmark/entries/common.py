@@ -1,5 +1,6 @@
 """What the entries share: the configuration's model, seeded device
-generators, the health band, the reservoir of ticks kept for the
+generators, the health band, the device tally of failures, the untimed
+finish of the counted episodes, the reservoir of ticks kept for the
 reference, and the verdict from the gaps."""
 
 import math
@@ -45,6 +46,26 @@ def unhealthy(sim, rec):
     return ~(finite & (z >= HEIGHT[0]) & (z <= HEIGHT[1]) & upright)
 
 
+class Tally:
+    """Failed operations counted on the device, one count for each episode
+    or pass: adding reads nothing back to the host, :meth:`counts` does."""
+
+    def __init__(self, device):
+        self.device = device
+        self.by = []
+
+    def add(self, index, n):
+        while len(self.by) <= index:
+            self.by.append(torch.zeros((), dtype=torch.int64,
+                                       device=self.device))
+        self.by[index] += n
+
+    def counts(self):
+        """[int] the failures of each episode or pass touched, in order."""
+        return [int(v) for v in torch.stack(self.by).cpu()] if self.by \
+            else []
+
+
 class Reservoir:
     """Up to ``k`` items of each key, a uniform sample (drawn from the
     seed) of all the items offered under it."""
@@ -74,7 +95,11 @@ class Reservoir:
 
 class ClosedLoop:
     """A cell that runs the controller in closed loop on the plant: the
-    configuration's preset, loaded as the program loads it."""
+    configuration's preset, loaded as the program loads it. An entry gives
+    ``fresh(episode)`` (the seeded start), ``advance(carry, episode, k)``
+    (tick ``k`` of ``episode``, its failures added to ``tally``) and a
+    window that leaves ``tally`` and ``at`` (carry, episode, ticks run in
+    it) for :meth:`finish`."""
 
     def __init__(self, config, mix, seed, device):
         from go1_qp_mpc_controller_torch.config import presets
@@ -83,6 +108,43 @@ class ClosedLoop:
         self.model, self.params, self.static = presets.load_preset(
             config["preset"], torch.float32, device=device)
         self.dt = float(mix["dt"])
+        self.episode_ticks = int(mix["episode_ticks"])
+        self.fail_episodes = int(mix["fail_episodes"])
+        self.finish_ticks = self.finish_s = None
+
+    def begin(self, episode):
+        """The carry that starts ``episode``."""
+        return self.fresh(episode)
+
+    def finish(self):
+        """Untimed, once the window has closed and the peak is read: the
+        rest of the seed's first ``fail_episodes`` episodes, from where the
+        window stopped, each tick through :meth:`advance` (the window's own
+        tick and health test). So ``failed`` covers the same whole episodes
+        at any speed; nothing here adds to the window's times, routes,
+        counters or kept ticks."""
+        carry, episode, k = self.at
+        t0, ticks = now(), 0
+        while episode < self.fail_episodes:
+            if k == self.episode_ticks:
+                episode, k = episode + 1, 0
+                if episode < self.fail_episodes:
+                    carry = self.begin(episode)
+                continue
+            carry = self.advance(carry, episode, k)
+            k += 1
+            ticks += 1
+        sync(self.device)
+        self.at = None
+        self.finish_ticks, self.finish_s = ticks, now() - t0
+        self.failed = sum(self.tally.counts()[:self.fail_episodes])
+
+    def finished(self):
+        """The record's count of failures: each episode's, every episode
+        the run touched (those past ``fail_episodes`` are not in
+        ``failed``), and the untimed finish's ticks and seconds."""
+        return {"failed_by_episode": self.tally.counts(),
+                "finish_ticks": self.finish_ticks, "finish_s": self.finish_s}
 
 
 STATS = {"max": lambda v: float(v.max()),

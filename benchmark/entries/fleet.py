@@ -7,9 +7,12 @@ Traffic keys (``traffic/<mix>.json``): ``batch``, ``dt``, ``episode_ticks``,
 episode), ``warmup_ticks`` (set-up: a fresh start run that far, then one
 tick with a few carried contact patterns flipped so that the compacted
 cold route is built too), ``check_ticks_per_route`` (the ticks of each
-route kept for the reference) and ``trace_seconds``.
+route kept for the reference), ``fail_episodes`` (the episodes that
+``attempted`` and ``failed`` cover) and ``trace_seconds``.
 
-``attempted`` counts robot-ticks; a robot-tick fails when its torques or
+``attempted`` counts the robot-ticks of the seed's first ``fail_episodes``
+episodes, each whole: the window's, then, untimed, the rest of them
+(:meth:`common.ClosedLoop.finish`). A robot-tick fails when its torques or
 forces are not finite, or when its robot has left the health band of the
 port's walking tests (height in [0.25, 0.35] m, tilt under 0.25 rad).
 """
@@ -25,7 +28,8 @@ class Cell(common.ClosedLoop):
         super().__init__(config, mix, seed, device)
         from go1_qp_mpc_controller_torch.envs import rollout
         from go1_qp_mpc_controller_torch.ops import admm
-        self.rollout = rollout
+        from go1_qp_mpc_controller_torch.utils import graphs
+        self.rollout, self.graphs = rollout, graphs
         path = config["paths"]["fleet"]
         self.path = path
         self.settings = admm.ADMMSettings(**path["cold"])
@@ -80,14 +84,19 @@ class Cell(common.ClosedLoop):
         self.tick(carry)
         common.sync(self.device)
 
+    def advance(self, carry, episode, k):
+        carry, rec = self.tick(carry)
+        self.tally.add(episode, common.unhealthy(carry.sim, rec).sum())
+        return carry
+
     def window(self, seconds, tracer):
-        episode_ticks = int(self.mix["episode_ticks"])
         episode = 0
-        carry = self.fresh(episode)
-        bad = torch.zeros((), dtype=torch.int64, device=self.device)
+        carry = self.begin(episode)
+        self.tally = common.Tally(self.device)
         keep = common.Reservoir(int(self.mix["check_ticks_per_route"]),
                                 self.seed)
         ticks = in_episode = 0
+        replays0 = self.graphs.replays
         common.sync(self.device)
         tracer.start()
         t0 = self.started = common.now()
@@ -97,31 +106,33 @@ class Cell(common.ClosedLoop):
             carry, rec = self.tick(c0, stats)
             (route,) = stats
             self.routes[route] = self.routes.get(route, 0) + 1
-            bad += common.unhealthy(carry.sim, rec).sum()
+            self.tally.add(episode, common.unhealthy(carry.sim, rec).sum())
             keep.offer(route, (c0, carry))
             ticks += 1
             in_episode += 1
             tracer.step()
             if common.now() - t0 >= seconds:
                 break
-            if in_episode == episode_ticks:
+            if in_episode == self.episode_ticks:
                 episode += 1
                 in_episode = 0
-                carry = self.fresh(episode)
+                carry = self.begin(episode)
         common.sync(self.device)
         elapsed = common.now() - t0
         tracer.stop()
+        self.replays = self.graphs.replays - replays0
         self.kept = keep
         self.ticks, self.elapsed, self.episodes = ticks, elapsed, episode + 1
-        self.failed = int(bad)
+        self.at = (carry, episode, in_episode)
         return {"fleet_ticks_per_s": self.batch * ticks / elapsed}
 
     def attempted(self):
-        return self.batch * self.ticks
+        return self.batch * self.episode_ticks * self.fail_episodes
 
     def record(self):
-        return {"ticks": self.ticks, "routes": dict(self.routes),
-                "episodes": self.episodes}
+        return dict(self.finished(), ticks=self.ticks,
+                    routes=dict(self.routes), replays=self.replays,
+                    episodes=self.episodes)
 
     def check(self, limits, control=False):
         """The reference's verdict on the kept ticks. With ``control`` the

@@ -9,9 +9,12 @@ joystick's segment lengths, in an order drawn from the seed),
 ``stand_segment`` (the length of the one that stands; the others trot),
 ``vx`` ([lo, hi], the trots' forward speeds, stratified), ``height_sigma``, ``vel_sigma`` (the seeded start), ``warmup_ticks``
 (set-up: one episode's schedule that far, which captures the graphs and
-replays every route), ``check_ticks_per_route`` and ``trace_seconds``.
+replays every route), ``check_ticks_per_route``, ``fail_episodes`` and
+``trace_seconds``.
 
-``attempted`` counts ticks; a tick fails as a fleet's robot-tick does.
+``attempted`` counts the ticks of the seed's first ``fail_episodes``
+episodes, each whole (the window's, then, untimed, the rest of them); a
+tick fails as a fleet's robot-tick does.
 """
 
 import torch
@@ -83,6 +86,8 @@ class Cell(common.ClosedLoop):
             warm_mode=path.get("warm_mode", "auto"),
             estimate=bool(path["estimate"]),
             use_terrain_adapt=self.static.use_terrain_adapt)
+        # every episode holds the same segments, so the same ticks
+        self.episode_ticks = len(schedule(mix, seed, 0))
 
     def fresh(self, episode):
         """A seeded standing start on the device."""
@@ -116,11 +121,19 @@ class Cell(common.ClosedLoop):
             carry, _, _ = self.tick(carry, cmd, {})
         common.sync(self.device)
 
+    def begin(self, episode):
+        self.plan = schedule(self.mix, self.seed, episode)
+        return self.fresh(episode)
+
+    def advance(self, carry, episode, k):
+        carry, rec, _ = self.tick(carry, self.plan[k], {})
+        self.tally.add(episode, common.unhealthy(carry.sim, rec).sum())
+        return carry
+
     def window(self, seconds, tracer):
         episode, k = 0, 0
-        plan = schedule(self.mix, self.seed, episode)
-        carry = self.fresh(episode)
-        bad = torch.zeros((), dtype=torch.int64, device=self.device)
+        carry = self.begin(episode)
+        self.tally = common.Tally(self.device)
         keep = common.Reservoir(int(self.mix["check_ticks_per_route"]),
                                 self.seed)
         walls, stats, routes = [], {}, {}
@@ -131,41 +144,42 @@ class Cell(common.ClosedLoop):
         while True:
             before = dict(stats)
             c0 = carry
+            cmd = self.plan[k]
             t0 = common.now()
-            carry, rec, tau = self.tick(c0, plan[k], stats)
+            carry, rec, tau = self.tick(c0, cmd, stats)
             walls.append(common.now() - t0)
             keys = tuple(sorted(r for r in stats
                                 if stats[r] != before.get(r, 0)))
             route = "+".join(keys)
             routes[route] = routes.get(route, 0) + 1
-            bad += common.unhealthy(carry.sim, rec).sum()
-            keep.offer(route, (c0, plan[k], carry))
+            self.tally.add(episode, common.unhealthy(carry.sim, rec).sum())
+            keep.offer(route, (c0, cmd, carry))
             tracer.step()
             k += 1
             if common.now() - t_start >= seconds:
                 break
-            if k == len(plan):
+            if k == self.episode_ticks:
                 episode, k = episode + 1, 0
-                plan = schedule(self.mix, self.seed, episode)
-                carry = self.fresh(episode)
+                carry = self.begin(episode)
         common.sync(self.device)
         self.elapsed = common.now() - t_start
         tracer.stop()
         self.walls, self.routes, self.kept = walls, routes, keep
         self.replays = self.graphs.replays - replays0
         self.episodes = episode + 1
-        self.failed = int(bad)
+        self.at = (carry, episode, k)
         ms = [w * 1e3 for w in walls]
         from harness import quantile
         return {"tick_p50_ms": quantile(ms, 0.5),
                 "tick_p99_ms": quantile(ms, 0.99)}
 
     def attempted(self):
-        return len(self.walls)
+        return self.episode_ticks * self.fail_episodes
 
     def record(self):
-        return {"ticks": len(self.walls), "routes": dict(self.routes),
-                "replays": self.replays, "episodes": self.episodes}
+        return dict(self.finished(), ticks=len(self.walls),
+                    routes=dict(self.routes), replays=self.replays,
+                    episodes=self.episodes)
 
     def check(self, limits, control=False):
         """The reference's verdict on the kept ticks. With ``control`` the

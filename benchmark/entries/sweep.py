@@ -4,12 +4,14 @@ sweep``'s program) called back to back over a pool of scenario batches.
 Traffic keys (``traffic/<mix>.json``): ``batch``, ``pool`` (batches made
 in set-up from the seed by the benchmark's frozen copy of
 ``random_scenarios``, cycled through), ``warmup_calls``,
-``check_calls`` (the calls kept for the reference) and
+``check_calls`` (the calls kept for the reference), ``fail_passes`` and
 ``trace_seconds``.
 
-``attempted`` counts solves; a solve fails when the solver flags it (its
-residuals reported as 1e6, its forces latched to zeros) or its forces are
-not finite. A failed solve is counted in ``failed`` and left out of the
+``attempted`` counts the solves of the first ``fail_passes`` passes
+through the pool, each whole: the window's calls, then, untimed, the calls
+left of them. A solve fails when the solver flags it (its residuals
+reported as 1e6, its forces latched to zeros) or its forces are not
+finite. A failed solve is counted in ``failed`` and left out of the
 reference's comparison, which judges every other solve of the kept
 calls.
 """
@@ -41,6 +43,8 @@ class Cell:
         self.fn = sweep.make_sweep_fn(device, self.mpc_dt,
                                       admm.ADMMSettings(**self.path["cold"]))
         self.batch = int(mix["batch"])
+        self.fail_passes = int(mix["fail_passes"])
+        self.finish_calls = self.finish_s = None
 
     def setup(self):
         from reference.go1.parallel import sweep as rsweep
@@ -53,18 +57,25 @@ class Cell:
             self.fn(self.pool[i % len(self.pool)])
         common.sync(self.device)
 
+    def advance(self, calls):
+        """Call ``calls``: the pool's batch ``calls % pool``, its flagged
+        solves tallied under its pass. Returns (batch index, output,
+        flags)."""
+        i = calls % len(self.pool)
+        out = self.fn(self.pool[i])
+        flagged = flags(out)
+        self.tally.add(calls // len(self.pool), flagged.sum())
+        return i, out, flagged
+
     def window(self, seconds, tracer):
         keep = common.Reservoir(int(self.mix["check_calls"]), self.seed)
-        bad = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.tally = common.Tally(self.device)
         calls = 0
         common.sync(self.device)
         tracer.start()
         t0 = self.started = common.now()
         while True:
-            i = calls % len(self.pool)
-            out = self.fn(self.pool[i])
-            flagged = flags(out)
-            bad += flagged.sum()
+            i, out, flagged = self.advance(calls)
             keep.offer("call", (i, out.forces_all, flagged))
             calls += 1
             tracer.step()
@@ -73,14 +84,31 @@ class Cell:
         common.sync(self.device)
         self.elapsed = common.now() - t0
         tracer.stop()
-        self.calls, self.kept, self.failed = calls, keep, int(bad)
+        self.calls, self.kept = calls, keep
         return {"solves_per_s": self.batch * calls / self.elapsed}
 
+    def finish(self):
+        """Untimed, once the window has closed and the peak is read: the
+        calls left of the first ``fail_passes`` passes, through the
+        window's own call, so that ``failed`` covers the same solves at any
+        speed; nothing here adds to the window's time or kept calls."""
+        t0 = common.now()
+        total = self.fail_passes * len(self.pool)
+        for calls in range(self.calls, total):
+            self.advance(calls)
+        common.sync(self.device)
+        self.finish_calls = max(0, total - self.calls)
+        self.finish_s = common.now() - t0
+        self.failed = sum(self.tally.counts()[:self.fail_passes])
+
     def attempted(self):
-        return self.batch * self.calls
+        return self.batch * len(self.pool) * self.fail_passes
 
     def record(self):
         return {"calls": self.calls, "batch": self.batch,
+                "failed_by_pass": self.tally.counts(),
+                "finish_calls": self.finish_calls,
+                "finish_s": self.finish_s,
                 "settings": dict(self.path["cold"])}
 
     def check(self, limits, control=False):

@@ -12,7 +12,10 @@ metric is read by ``benchmark/metrics/<metric>.py``.
 
 A run: set-up (load, build or load the kernels, make the inputs on the
 device from the seed, warm up the cell's own routes), a window of
-``--seconds``, then the reference check of what the window produced. With
+``--seconds``, an untimed finish of the whole episodes or passes that
+``attempted`` and ``failed`` cover (a fixed number from the traffic file,
+so the count does not move with where the window ends), then the
+reference check of what the window produced. With
 ``--trace 0`` the result line holds the cell's end-to-end metrics; with
 ``--trace 1`` the window's first ``trace_seconds`` (from the traffic file)
 run under torch.profiler and the line holds the per-layer metrics. The
@@ -131,6 +134,7 @@ def main(argv=None, root=None, device=None):
     setup_s = cell.started - _START
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
+    cell.finish()
 
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": (torch.cuda.get_device_name(device)

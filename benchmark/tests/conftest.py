@@ -21,16 +21,19 @@ PROGRAM = "go1_qp_mpc_controller_torch"
 # the tiny sizes of each entry's traffic
 TINY = {
     "fleet": dict(batch=6, episode_ticks=150, warmup_ticks=42,
-                  check_ticks_per_route=1, trace_seconds=0.5),
-    "one_robot": dict(episode_ticks=150, stand_ticks=40, warmup_ticks=20,
-                      check_ticks_per_route=3, trace_seconds=0.5),
-    "sweep": dict(batch=8, pool=2, warmup_calls=1, check_calls=1,
+                  check_ticks_per_route=1, fail_episodes=1,
                   trace_seconds=0.5),
+    "one_robot": dict(episode_ticks=150, stand_ticks=40, warmup_ticks=20,
+                      check_ticks_per_route=3, fail_episodes=1,
+                      trace_seconds=0.5),
+    "sweep": dict(batch=8, pool=2, warmup_calls=1, check_calls=1,
+                  fail_passes=2, trace_seconds=0.5),
 }
 
 
-def make_tiny_root(dest):
-    """A checkout at ``dest`` with a ``tiny-<cell>`` beside every cell."""
+def make_tiny_root(dest, sizes=None):
+    """A checkout at ``dest`` with a ``tiny-<cell>`` beside every cell
+    (``sizes``: {entry: traffic keys} over :data:`TINY`'s)."""
     dest = Path(dest)
     shutil.copytree(REPO / "benchmark", dest / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
@@ -40,6 +43,7 @@ def make_tiny_root(dest):
         mix = json.loads((dest / "benchmark" / "traffic"
                           / f"{w['traffic']}.json").read_text())
         mix.update(TINY[mix["entry"]])
+        mix.update((sizes or {}).get(mix["entry"], {}))
         if "segments" in mix:
             # the same segments, shortened to the tiny episode
             scale = (mix["episode_ticks"] - mix["stand_ticks"]) / sum(

@@ -37,17 +37,19 @@ def _altered_torque(monkeypatch):
 
 def _half_batch(monkeypatch):
     """Half of the batch left out, the mean taken over the rest: the GRF
-    solve of the first half, its mean for the second."""
+    solve's tail, which every route's part ends in (the card's captured
+    parts and the CPU's plain composition alike), keeps the first half's
+    forces and gives the second half their mean."""
     from go1_qp_mpc_controller_torch.ctrl import controller
-    real = controller.compute_grf_mpc_batched
+    real = controller._finish_grf
 
-    def fn(states, *a, **k):
-        out = real(states, *a, **k)
+    def fn(state, *a, **k):
+        out = real(state, *a, **k)
         f = out.foot_forces_grf.clone()
         half = f.shape[0] // 2
         f[half:] = f[:half].mean(0)
         return out._replace(foot_forces_grf=f)
-    monkeypatch.setattr(controller, "compute_grf_mpc_batched", fn)
+    monkeypatch.setattr(controller, "_finish_grf", fn)
 
 
 def _altered_solve(monkeypatch):

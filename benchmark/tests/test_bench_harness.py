@@ -105,4 +105,6 @@ def test_a_new_mix_and_metric_are_new_files(tiny_root, run_module, capsys):
         (tiny_root / "BENCHMARK.json").write_text(saved)
     assert rc == 0, err
     assert res["metrics"]["ticks_seen.fleet"]["value"] == res["record"]["ticks"]
-    assert res["attempted"] == 3 * res["record"]["ticks"]
+    # whole episodes of the new mix's three robots
+    assert res["attempted"] == 3 * mix["episode_ticks"] * mix[
+        "fail_episodes"]

@@ -39,6 +39,10 @@ def test_cold_tick_share(tiny_root):
 def test_replays_and_kernels_per_tick(tiny_root):
     assert _reader(tiny_root, "replays_per_tick.one_robot").read(
         {"ticks": 4, "replays": 9}) == pytest.approx(2.25)
+    fleet = _reader(tiny_root, "replays_per_tick.fleet")
+    assert fleet.read({"ticks": 4, "replays": 10}) == pytest.approx(2.5)
+    # the CPU's eager tick replays nothing
+    assert fleet.read({"ticks": 4, "replays": 0}) is None
     k = _reader(tiny_root, "kernels_per_tick.one_robot")
     # the copy is not a kernel
     assert k.read({"traced": 2, "events": _events()}) == pytest.approx(1.0)
