@@ -1092,10 +1092,10 @@ def k3_route_phase(gen, device, reps):
     matrix, then 1) timed in turn with ``torch.linalg.inv`` on the first
     1, 2, 4, 8, 12, 16 and 32 of 32 random KKTs, 20 plain steps cold; each
     route within ``K3_EMU_TOL`` of the 3xTF32 emulation per scenario in
-    balanced coordinates (their products sum in different orders, so they
-    agree to that, not bit for bit). Prints the batches at which the
-    cluster route is faster (``schulz_batch.CROSSOVER`` is set from them).
-    Returns (None, lines, passed)."""
+    balanced coordinates; the routes' gap is 0, as they give the same bits
+    (tests/test_torch_kernels_cuda.py holds that). Prints the batches at
+    which the cluster route is faster (``schulz_batch.CROSSOVER`` is set
+    from them). Returns (None, lines, passed)."""
     import torch
     from go1_qp_mpc_controller_torch.ops import kkt_schulz, schulz_batch
 

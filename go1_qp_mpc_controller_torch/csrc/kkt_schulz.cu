@@ -21,10 +21,12 @@
 // (ops/kkt_schulz.py::route):
 //
 //   - "cta": a schedule with a 3xTF32 step, at any batch.
-//     schulz_tc.cuh's one-block body (wgmma middles, 225 KB, 256 threads)
-//     on M built straight into its padded 128 x 128 swizzled slot by
-//     KktSource as it balances: the factors are read from global memory
-//     with j-contiguous (coalesced) loads, a thread holding one column's
+//     schulz_tc.cuh's one-block body (wgmma middles, 256 threads; 225 KB:
+//     M_b, X and T of 64 KB each and a ring of four 8 KB hi / lo slabs of
+//     B, A going to the tensor cores from registers) on M built straight
+//     into its padded 128 x 128 swizzled slot by KktSource as it
+//     balances: the factors are read from global memory with
+//     j-contiguous (coalesced) loads, a thread holding one column's
 //     quadrant entries in registers, h and x taken from loop indices. The
 //     225 KB leave no room to stage them. (schulz_tc.cuh's cluster body
 //     is not used: no path sends K1 a 3xTF32 schedule at the small batches

@@ -33,14 +33,17 @@
 // in shared memory; the middle products run 3xTF32 on the tensor cores,
 // the tail and basin products FP32 FMA. The CTA route (batch above
 // schulz_batch.CROSSOVER) fills the card with one 225 KB block per SM
-// whose two warpgroups issue wgmma on k-slabs of the operands split once
-// into hi / lo copies, the next slab split while the tensor cores run;
-// what is left is the FP32 tail, the splits and the 32nd partial wave of
-// 4096 / 132 blocks. The cluster route (up to the crossover) splits each
-// product over 8 SMs (16 columns each, mma.sync), exchanging X's new
-// columns through distributed shared memory, so a single matrix runs on 8
-// SMs instead of one; its exchange and cluster barrier, one a step, bound
-// it. Above the crossover the clusters no longer run in one wave.
+// whose two warpgroups issue wgmma with A's fragments split in registers
+// and B's k-slabs split once into a ring of hi / lo slots, each waiting
+// only for the slab before the one it just issued, so the tensor cores
+// never drain inside a product; what is left is each slab's own work
+// around its wgmmas (B's split and staging, A's loads and splits, a
+// barrier), the FP32 tail and the 32nd partial wave of 4096 / 132 blocks.
+// The cluster route (up to the crossover) splits each product over 8 SMs
+// (16 columns each, mma.sync), exchanging X's new columns through
+// distributed shared memory, so a single matrix runs on 8 SMs instead of
+// one; its exchange and cluster barrier, one a step, bound it. Above the
+// crossover the clusters no longer run in one wave.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

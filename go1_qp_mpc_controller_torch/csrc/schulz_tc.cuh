@@ -27,17 +27,18 @@
 // the small terms' sum is added to the large one at the end (product
 // error ~1e-6 relative like the TPU's bf16x3; a single TF32 or bf16 pass
 // diverges on the controller's KKTs). Every entry is split once per
-// product: the CTA route stages each k-slab of both operands as hi / lo
-// copies, the cluster route its B panel. The basin test's product, the
-// accepted warm step and the last hi_tail steps run FP32 FMA on the SIMT
-// cores (the TPU's HIGHEST). Both routes sum every product entry in the
-// same order, so they give the same bits.
+// product: the CTA route splits A's fragments in registers and stages
+// each k-slab of B as hi / lo copies, the cluster route its B panel. The
+// basin test's product, the accepted warm step and the last hi_tail steps
+// run FP32 FMA on the SIMT cores (the TPU's HIGHEST). Both routes sum
+// every product entry in the same order, so they give the same bits.
 //
-// What bounds each route on an H100: the CTA route, operations (the
-// tensor cores' three passes, then the FP32 tail products and the
-// splits); the cluster route, latency: 38 dependent products for 20 cold
-// steps, each step ending in an exchange of X's new columns and a cluster
-// barrier.
+// What bounds each route on an H100: the CTA route, each k-slab's three
+// tensor-core passes, two of them chained on one accumulator, with B's
+// split and staging and the block's barrier around them, then the FP32
+// tail products and the load and balance; the cluster route, latency: 38
+// dependent products for 20 cold steps, each step ending in an exchange
+// of X's new columns and a cluster barrier.
 //
 // Padding: rows and columns n .. 127 hold an identity block in M_b and in
 // a warm start. The products keep the block structure exactly (the
@@ -48,8 +49,9 @@
 // the column index XOR-ed with 4 p(row mod 8) (p a permutation of 0..7):
 // the mma fragment loads of A (rows g, columns t), the staging reads and
 // the float4 row reads of the SIMT product are then free of bank
-// conflicts. The CTA route holds M_b, X, T (3 x 64 KB) and 32 KB of wgmma
-// staging (225 KB). A cluster block holds all of M_b and two buffers of X
+// conflicts. The CTA route holds M_b, X, T (3 x 64 KB) and a ring of four
+// 8 KB hi / lo slabs of B for wgmma (225 KB; A goes to the tensor cores
+// from registers). A cluster block holds all of M_b and two buffers of X
 // (3 x 64 KB), its 16-column panel of T and the hi / lo split of a B panel
 // (3 x 8 KB, swizzled by pswz): the columns of T need only the block's
 // columns of X, so a step exchanges once (cluster_schulz).
@@ -72,13 +74,15 @@ constexpr int NTHREADS = 256;           // 8 warps
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int CLUSTER = 8;              // blocks of one matrix (cluster route)
 constexpr int PANEL = NP / CLUSTER;     // columns a cluster block owns
+constexpr int SLAB = NP * 8;            // floats of a k-slab's hi or lo half
+constexpr int RING = 4;                 // B slabs the CTA route stages
 
 // Shared memory of a block on each route (floats, see the layouts in
 // cta_schulz and cluster_schulz).
 template <bool CL>
 struct Route {
     static constexpr int CTA_FLOATS =
-        3 * NP * NP + 2 * 4 * NP * 8 + NP + 2 * NWARPS + 2;
+        3 * NP * NP + RING * 2 * SLAB + NP + 2 * NWARPS + 2;
     static constexpr int CLUSTER_FLOATS =
         3 * NP * NP + 3 * NP * PANEL + NP + 2 * NWARPS + 2 + 2 * CLUSTER
         + CLUSTER * NP;
@@ -222,19 +226,34 @@ struct TcPanel {
 // ---- the CTA route's middle product: wgmma ----
 //
 // A 128 x 128 product on the block's two warpgroups, warpgroup w owning
-// rows 64 w .. 64 w + 63: per k-slab of 8, every thread splits 4 entries of
-// A and 4 of B into hi / lo TF32 copies in a staging buffer (each entry
-// once, where mma.sync fragments split A twice and B four times), and each
-// warpgroup issues three wgmma.m64n128k8 (lo hi and hi lo into one
-// accumulator, hi hi into another) that read both operands from it. The
-// next slab is staged while they run (two buffers).
+// rows 64 w .. 64 w + 63, in 16 k-slabs of 8, issued so that the tensor
+// cores never drain inside a product:
+//
+//   - A from registers: each warp loads its own fragments of a slab (rows
+//     g, g + 8 and columns t, t + 4 of its 16 rows; the swizzle makes these
+//     loads conflict-free) and splits them into hi / lo there, so each
+//     entry of A is read and split once and none of A is staged;
+//   - B through a ring of RING slots of hi / lo copies (8 KB a slab): every
+//     thread splits 4 entries of a slab (each entry once), which both
+//     warpgroups' wgmmas read;
+//   - per slab each warpgroup issues three wgmma.m64n128k8 (lo hi and hi lo
+//     into one accumulator, hi hi into another, the two lo hi / hi lo
+//     apart so that each waits less on the other), then, while they run,
+//     splits the next slab of B into the next slot and waits only for the
+//     previous slab's group (wait_group 1), so the tensor cores always
+//     hold a slab; the next slab's A fragments are split once that wait
+//     has freed their registers (two sets). The raw entries of both
+//     operands are loaded two slabs ahead, so no shared-memory load waits
+//     between an issue and the next. The block's barrier that ends a slab
+//     publishes the staged slot and tells that both warpgroups retired
+//     every slab before it, so the slot written during slab s (slab s - 3's)
+//     is free.
 //
 // Staging layout: K-major without swizzle, as wgmma reads .tf32 operands:
 // 8 x 4 core matrices of 128 contiguous bytes (row r, k-quad q at
 // (r / 8) * SBO + q * LBO + (r % 8) * 16 bytes).
 constexpr int STAGE_LBO = 128;          // bytes between the two k-quads
 constexpr int STAGE_SBO = 256;          // bytes between 8-row groups
-constexpr int SLAB = NP * 8;            // floats of one operand's slab
 
 __device__ __forceinline__ uint64_t smem_desc(const float* p) {
     const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -243,11 +262,13 @@ __device__ __forceinline__ uint64_t smem_desc(const float* p) {
            | ((uint64_t)(STAGE_SBO >> 4) << 32);
 }
 
-// d += A B for one 64 x 128 x 8 slab, both operands in shared memory
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
+// d += A B for one 64 x 128 x 8 slab, A's fragment in registers (the
+// mma.m16n8k8 layout on each warp's 16 rows), B in shared memory
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
                                            uint64_t db) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
         "{"
         "%0, %1, %2, %3, %4, %5, %6, %7, "
@@ -258,7 +279,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
         "%40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1;\n}\n"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
           "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
           "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -272,7 +293,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
           "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
           "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(1));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -281,8 +302,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N of this warpgroup's committed groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 // generic-proxy writes to shared memory made visible to wgmma's reads
 __device__ __forceinline__ void fence_proxy_async() {
@@ -298,89 +321,131 @@ struct WgProduct {
     float acc[64];     // hi * hi, then the result
     float accs[64];    // lo * hi + hi * lo
 
-    // split slab k0 .. k0 + 7 of A (rows) and B (columns) into `buf`:
-    // thread (r, q) = (tid % 128, tid / 128) takes A[r][k0 + 4q ..] as a
-    // float4 and B[k0 + 4q ..][r] as four loads
-    __device__ __forceinline__ static void stage(const float* A,
-                                                 const float* B, float* buf,
-                                                 int k0) {
+    // this thread's entries of B's slab k0: thread (r, q) = (tid % 128,
+    // tid / 128) takes B[k0 + 4q .. k0 + 4q + 3][r]
+    __device__ __forceinline__ static void load_b(const float* B, int k0,
+                                                  float (&f)[4]) {
+        const int r = threadIdx.x & (NP - 1), q = threadIdx.x >> 7;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[e] = B[swz(k0 + 4 * q + e, r)];
+    }
+
+    // split them into a ring slot, hi then lo
+    __device__ __forceinline__ static void store_b(const float (&f)[4],
+                                                   float* slot) {
         const int r = threadIdx.x & (NP - 1), q = threadIdx.x >> 7;
         const int at = (r >> 3) * (STAGE_SBO / 4) + q * (STAGE_LBO / 4)
                        + (r & 7) * 4;
-        const float4 a =
-            *reinterpret_cast<const float4*>(A + swz(r, k0 + 4 * q));
-        const float b[4] = {B[swz(k0 + 4 * q, r)], B[swz(k0 + 4 * q + 1, r)],
-                            B[swz(k0 + 4 * q + 2, r)],
-                            B[swz(k0 + 4 * q + 3, r)]};
-        const float av[4] = {a.x, a.y, a.z, a.w};
         uint32_t h[4], l[4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) split(av[e], h[e], l[e]);
-        *reinterpret_cast<uint4*>(buf + at) =
+        for (int e = 0; e < 4; ++e) split(f[e], h[e], l[e]);
+        *reinterpret_cast<uint4*>(slot + at) =
             make_uint4(h[0], h[1], h[2], h[3]);
-        *reinterpret_cast<uint4*>(buf + SLAB + at) =
-            make_uint4(l[0], l[1], l[2], l[3]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split(b[e], h[e], l[e]);
-        *reinterpret_cast<uint4*>(buf + 2 * SLAB + at) =
-            make_uint4(h[0], h[1], h[2], h[3]);
-        *reinterpret_cast<uint4*>(buf + 3 * SLAB + at) =
+        *reinterpret_cast<uint4*>(slot + SLAB + at) =
             make_uint4(l[0], l[1], l[2], l[3]);
     }
 
-    // acc = A @ B (128 x 128, both swizzled) with `stage` as the staging
+    // this thread's entries of A's fragment of slab k0: rows i, i + 8 (i =
+    // 16 warp + g), columns k0 + t, k0 + t + 4
+    __device__ __forceinline__ static void load_a(const float* A, int k0,
+                                                  float (&f)[4]) {
+        const int lane = threadIdx.x & 31;
+        const int i = 16 * (threadIdx.x >> 5) + (lane >> 2), t = lane & 3;
+        f[0] = A[swz(i, k0 + t)];
+        f[1] = A[swz(i + 8, k0 + t)];
+        f[2] = A[swz(i, k0 + t + 4)];
+        f[3] = A[swz(i + 8, k0 + t + 4)];
+    }
+
+    __device__ __forceinline__ static void split_a(const float (&f)[4],
+                                                   uint32_t (&hi)[4],
+                                                   uint32_t (&lo)[4]) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split(f[e], hi[e], lo[e]);
+    }
+
+    // slab s on A's fragment (ah, al) and its ring slot; unless it is the
+    // last: B's slab s + 1 split from rb into the next slot, A's from ra
+    // into (nh, nl) once slab s - 1 has retired, and (PRE) both operands'
+    // slab s + 2 loaded into rb and ra; then the block's barrier
+    template <bool LAST, bool PRE>
+    __device__ __forceinline__ void slab(const float* A, const float* B,
+                                         float* ring, int s,
+                                         const uint32_t (&ah)[4],
+                                         const uint32_t (&al)[4],
+                                         uint32_t (&nh)[4], uint32_t (&nl)[4],
+                                         float (&rb)[4], float (&ra)[4]) {
+        const float* slot = ring + (s % RING) * 2 * SLAB;
+        const uint64_t bhi = smem_desc(slot), blo = smem_desc(slot + SLAB);
+        pin(accs);
+        pin(acc);
+        wgmma_fence();
+        wgmma_tf32(accs, al, bhi);
+        wgmma_tf32(acc, ah, bhi);
+        wgmma_tf32(accs, ah, blo);
+        wgmma_commit();
+        pin(accs);
+        pin(acc);
+        if constexpr (LAST) {
+            wgmma_wait<0>();
+        } else {
+            store_b(rb, ring + ((s + 1) % RING) * 2 * SLAB);
+            if constexpr (PRE) load_b(B, 8 * (s + 2), rb);
+            wgmma_wait<1>();
+            split_a(ra, nh, nl);
+            if constexpr (PRE) load_a(A, 8 * (s + 2), ra);
+            fence_proxy_async();
+            __syncthreads();
+        }
+        pin(accs);
+        pin(acc);
+    }
+
+    // acc = A @ B (128 x 128, both swizzled) with `ring` (RING slots) as
+    // the staging of B. Warp w reads rows 16 w .. 16 w + 15 of A and no
+    // other, so it may overwrite them once run returns.
     __device__ __forceinline__ void run(const float* A, const float* B,
-                                        float* stage_mem) {
+                                        float* ring) {
 #pragma unroll
         for (int i = 0; i < 64; ++i) {
             acc[i] = 0.0f;
             accs[i] = 0.0f;
         }
-        const int wrow = (threadIdx.x >> 7) * 64 * (STAGE_SBO / 4) / 8;
-        stage(A, B, stage_mem, 0);
+        uint32_t h0[4], l0[4], h1[4], l1[4];
+        float rb[4], ra[4];
+        load_b(B, 0, rb);
+        store_b(rb, ring);
+        load_a(A, 0, ra);
+        split_a(ra, h0, l0);
+        load_b(B, 8, rb);
+        load_a(A, 8, ra);
         fence_proxy_async();
         __syncthreads();
 #pragma unroll 1
-        for (int s = 0; s < NP / 8; ++s) {
-            float* buf = stage_mem + (s & 1) * 4 * SLAB;
-            const uint64_t ahi = smem_desc(buf + wrow);
-            const uint64_t alo = smem_desc(buf + SLAB + wrow);
-            const uint64_t bhi = smem_desc(buf + 2 * SLAB);
-            const uint64_t blo = smem_desc(buf + 3 * SLAB);
-            pin(accs);
-            pin(acc);
-            wgmma_fence();
-            wgmma_tf32(accs, alo, bhi);
-            wgmma_tf32(accs, ahi, blo);
-            wgmma_tf32(acc, ahi, bhi);
-            wgmma_commit();
-            if (s + 1 < NP / 8)
-                stage(A, B, stage_mem + ((s + 1) & 1) * 4 * SLAB, 8 * (s + 1));
-            wgmma_wait_all();
-            pin(accs);
-            pin(acc);
-            fence_proxy_async();
-            __syncthreads();
+        for (int s = 0; s < NP / 8 - 2; s += 2) {
+            slab<false, true>(A, B, ring, s, h0, l0, h1, l1, rb, ra);
+            slab<false, true>(A, B, ring, s + 1, h1, l1, h0, l0, rb, ra);
         }
+        slab<false, false>(A, B, ring, NP / 8 - 2, h0, l0, h1, l1, rb, ra);
+        slab<true, false>(A, B, ring, NP / 8 - 1, h1, l1, h0, l0, rb, ra);
         // the small terms' sum first, then hi * hi (matmul_3xtf32's order)
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc[i] = accs[i] + acc[i];
     }
 
-    // f(row, column, value) for every entry the thread holds: warp w's
-    // rows 16 w .. 16 w + 15, the m16n8 accumulator layout over 16 column
-    // blocks of 8
+    // f(row, column, value, value at column + 1) for every pair of entries
+    // the thread holds: warp w's rows 16 w .. 16 w + 15, the m16n8
+    // accumulator layout over 16 column blocks of 8 (a pair stays adjacent
+    // under the swizzle, so f may store it as one float2)
     template <class F>
-    __device__ __forceinline__ void for_each(F f) const {
+    __device__ __forceinline__ void for_each_pair(F f) const {
         const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
         const int i = 16 * warp + (lane >> 2), t = lane & 3;
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
             const int c = 8 * j + 2 * t;
-            f(i, c, acc[4 * j]);
-            f(i, c + 1, acc[4 * j + 1]);
-            f(i + 8, c, acc[4 * j + 2]);
-            f(i + 8, c + 1, acc[4 * j + 3]);
+            f(i, c, acc[4 * j], acc[4 * j + 1]);
+            f(i + 8, c, acc[4 * j + 2], acc[4 * j + 3]);
         }
     }
 };
@@ -584,22 +649,30 @@ __device__ __forceinline__ void fill_eye(float* xs, float c) {
 // FP32), T in `tm`, X updated in place after the product.
 template <bool TC>
 __device__ __forceinline__ void cta_step(const float* mb, float* xs,
-                                         float* tm, float* stage, float aa) {
+                                         float* tm, float* ring, float aa) {
     const float two_a = 2.0f * aa, a2 = aa * aa;
+    auto t_val = [&](int i, int j, float v) {
+        return (i == j ? two_a : 0.0f) - a2 * v;
+    };
     auto t_out = [&](int i, int j, float v) {
-        tm[swz(i, j)] = (i == j ? two_a : 0.0f) - a2 * v;
+        tm[swz(i, j)] = t_val(i, j, v);
     };
     auto x_out = [&](int i, int j, float v) { xs[swz(i, j)] = v; };
     if constexpr (TC) {
         {
             WgProduct p;
-            p.run(mb, xs, stage);
-            p.for_each(t_out);
+            p.run(mb, xs, ring);
+            p.for_each_pair([&](int i, int j, float v0, float v1) {
+                *reinterpret_cast<float2*>(tm + swz(i, j)) =
+                    make_float2(t_val(i, j, v0), t_val(i, j + 1, v1));
+            });
         }
         __syncthreads();
         WgProduct p;
-        p.run(xs, tm, stage);
-        p.for_each(x_out);
+        p.run(xs, tm, ring);
+        p.for_each_pair([&](int i, int j, float v0, float v1) {
+            *reinterpret_cast<float2*>(xs + swz(i, j)) = make_float2(v0, v1);
+        });
     } else {
         {
             SimtProduct<NP> p;
@@ -627,8 +700,8 @@ __device__ __forceinline__ void cta_step(const float* mb, float* xs,
 // c0 I is folded; scenarios that accepted their warm start run plain
 // Newton (a = 1). Steps k < n_coeffs - hi_tail run 3xTF32.
 //
-// Shared memory: M_b, X and T (3 x 64 KB), the wgmma staging (32 KB), s and
-// the reduction scratch.
+// Shared memory: M_b, X and T (3 x 64 KB), the ring of B's hi / lo slabs
+// (RING x 8 KB), s and the reduction scratch.
 template <bool BALANCE, class Src>
 __device__ void cta_schulz(float* smem, const Src& src,
                            const float* __restrict__ x0, int n,
@@ -637,8 +710,8 @@ __device__ void cta_schulz(float* smem, const Src& src,
     float* mb = smem;
     float* xs = mb + NP * NP;
     float* tm = xs + NP * NP;
-    float* stage = tm + NP * NP;
-    float* sv = stage + 2 * 4 * SLAB;
+    float* ring = tm + NP * NP;
+    float* sv = ring + RING * 2 * SLAB;
     float* red = sv + NP;
     const int tid = threadIdx.x;
     const bool warm = x0 != nullptr;
@@ -691,9 +764,9 @@ __device__ void cta_schulz(float* smem, const Src& src,
     for (int k = start; k < n_coeffs; ++k) {
         const float aa = (warm && ok) ? 1.0f : sched.a[k];
         if (k < n_coeffs - hi_tail)
-            cta_step<true>(mb, xs, tm, stage, aa);
+            cta_step<true>(mb, xs, tm, ring, aa);
         else
-            cta_step<false>(mb, xs, tm, stage, aa);
+            cta_step<false>(mb, xs, tm, ring, aa);
     }
 
     for (int idx = tid; idx < NP * NP; idx += NTHREADS) {

@@ -139,14 +139,17 @@ def test_k2_kernel_matches_plain(card):
 
 
 @pytest.mark.parametrize("hi_tail", [0, 1, 2])
-@pytest.mark.parametrize("batch", [1, 17, 128, 256])
-@pytest.mark.parametrize("variant", ["cold", "warm", "warm_scaled"])
+@pytest.mark.parametrize(
+    "variant, batch",
+    [(v, b) for b in (1, 17, 128, 256)
+     for v in ("cold", "warm", "warm_scaled")] + [("cold", 4096)])
 def test_k1_routes_match_plain(card, batch, variant, hi_tail):
     """K1 at FP32 tail ``hi_tail`` on the route the wrapper picks
     (``kkt_schulz.route``), one counted launch, and on the other route for
     the same schedule: within 3e-4 of the float32 plain version per
     scenario in balanced coordinates and within ``chip_smoke.K1_EMU_TOL``
-    of the emulation with the kernel's 3xTF32 middle steps."""
+    of the emulation with the kernel's 3xTF32 middle steps. Batch 4096
+    (the fleet's whole-batch cold solve) on the cold schedule."""
     ops = _k1_operands(batch, card, seed=batch)
     c3 = admm._scaled_schulz_coeffs(1e-3)
     c4 = admm._scaled_schulz_coeffs(1e-4)
@@ -375,6 +378,35 @@ def test_k3_routes_match_plain(card, batch, warm):
                                  1 if way == "cluster" else
                                  schulz_batch.CLUSTER)
     _assert_k3_close(other, m, x0, coeffs)
+
+
+K3_ROUTE_CASES = {   # case: (warm, schedule, hi_tail)
+    "cold": (False, (1.0,) * 20, 2),
+    "scaled_tail0": (False, admm._scaled_schulz_coeffs(1e-6), 0),
+    "scaled_tail2": (False, admm._scaled_schulz_coeffs(1e-6), 2),
+    "warm": (True, (1.0,) * 20, 2),
+    "one_tf32_step": (False, (1.0,) * 4, 2),
+    "warm_one_tf32_step": (True, (1.0,) * 4, 2),
+}
+
+
+@pytest.mark.parametrize("case", list(K3_ROUTE_CASES))
+@pytest.mark.parametrize("batch", [17, 4096])
+def test_k3_cta_and_cluster_routes_give_the_same_bits(card, batch, case):
+    """n = 120: the CTA route (one block a matrix, wgmma) and the cluster
+    route (``CLUSTER`` blocks a matrix, mma.sync) split every operand with
+    the same rounding and sum every product entry in the same order, so
+    they return the same bits: 20 plain steps cold, the scaled l0 = 1e-6
+    schedule with no FP32 tail and with two FP32 steps, 20 steps from warm
+    starts of which every eighth fails the basin test, and schedules with
+    exactly one 3xTF32 step (the first step folded or the basin test's,
+    the last two FP32), cold and warm."""
+    warm, coeffs, tail = K3_ROUTE_CASES[case]
+    m, x0 = _k3_120(batch, card, warm, seed=batch)
+    cta = schulz_batch._launch(m, x0, coeffs, tail, 1)
+    cluster = schulz_batch._launch(m, x0, coeffs, tail, schulz_batch.CLUSTER)
+    assert torch.isfinite(cta).all()
+    assert torch.equal(cta, cluster)
 
 
 @pytest.mark.parametrize("batch", [1, 64])
