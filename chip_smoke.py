@@ -3064,7 +3064,7 @@ def rl_loop_s_mat(loop):
     _, s = loop.bridge.read_sensors()
     x, p = loop._est
     frame = loop._frame(s, loop.command, False)
-    return loop._pre(x, p, frame, loop.rl_state).s_mat
+    return loop._pre(x, p, frame, loop.rl_state)[1].s_mat
 
 
 def rl_loop_phase(seed, device, card, time_scale):

@@ -33,8 +33,8 @@ rule of both, :func:`routed_rule` its host side. The batched tick comes
 in fixed-shape parts too (:func:`grf_batched_parts`,
 :func:`tick_batched_parts`: the whole batch or the gathered
 ``compact_k`` sub-batch), routed by :func:`batched_routing`, which
-:func:`compute_grf_mpc_batched` composes plainly and
-``envs/rollout.py::rollout_batched`` captures on the card.
+:func:`compute_grf_mpc_batched` and :func:`control_step_batched` compose
+plainly and ``envs/rollout.py::rollout_batched`` captures on the card.
 """
 
 from typing import NamedTuple
@@ -967,18 +967,20 @@ def control_step_batched(states, model, params, dt,
                          warm_settings=WARM_SETTINGS, robust=False,
                          compact_k=128, stats=None):
     """One controller tick for a batch: plan -> swing -> routed MPC GRF
-    solve (:func:`compute_grf_mpc_batched`) -> torques, the stages of
-    :func:`tick_batched_parts` run eagerly.
+    solve (:func:`compute_grf_mpc_batched`) -> torques, the plain
+    composition of :func:`tick_batched_parts`; the route taken is counted
+    into ``stats``.
 
     Pins true-float32 matmuls first (see ``utils/device.py``). ``settings``
     are the cold transition-solve settings: polished ones take the dense
     solve (K3), the others the segmented lazy solve (K1).
     """
-    args = _planned(float(dt))((states, model, params))
-    states = compute_grf_mpc_batched(*args, settings, use_terrain_adapt,
-                                     warm_settings, robust=robust,
-                                     compact_k=compact_k, stats=stats)
-    return _torques(args, (states,))[0]
+    (route,), (states,) = graphs.compose_stages(
+        tick_batched_parts(float(dt), settings, use_terrain_adapt,
+                           warm_settings, robust, compact_k),
+        states, model, params)
+    _count(stats, route)
+    return states
 
 
 def control_step(states, model, params, dt, solver_type=MPC,

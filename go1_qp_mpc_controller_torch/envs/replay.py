@@ -226,10 +226,10 @@ def replay_joint_signal(q_signal, model, dt, kp=180.0, kd=8.0, height=0.3):
                                 contacts, stand_targets, dt)
         return sm, sm.prev_joint_pos, sm.root_pos
 
-    step = graphs.CapturedStep(tick, sim, q_signal[0])
+    step = graphs.StagedStep(graphs.single(tick), sim, q_signal[0])
     joints, roots = [], []
     for q_t in q_signal:
-        sim, q, root = step(sim, q_t)
+        sim, q, root = step(sim, q_t)[1]
         joints.append(q.clone())
         roots.append(root.clone())
     return {"joint_pos": torch.stack(joints), "root_pos": torch.stack(roots)}

@@ -7,10 +7,10 @@ torques, then one plant step. The JAX ``lax.scan`` becomes a Python loop.
 Both rollouts run B robots at once:
 
 - :func:`rollout_batched` routes the GRF solve over the whole batch
-  (``controller.control_step_batched``), the batched-sweep program; on
-  the card each tick replays captured CUDA graphs
-  (:func:`tick_batched_parts`: fixed-shape parts between the routing's
-  two host reads);
+  (``controller.control_step_batched``), the batched-sweep program: each
+  tick is :func:`tick_batched_parts` (fixed-shape parts between the
+  routing's two host reads), replayed on the card from captured CUDA
+  graphs;
 - :func:`rollout` gives each robot the per-scenario semantics of the JAX
   ``rollout`` (``controller.control_step``): MPC or balance-QP stance
   control, each scenario routed on its own. At batch 1 it is the
@@ -21,7 +21,7 @@ Both rollouts run B robots at once:
 :func:`rl_rollout` is the RL stack's closed loop (``init_rl_carry``):
 policy or servo stand -> position commands -> the plant's motor PD loop.
 It launches none of the counted kernels, so on the card each of its ticks
-is one CUDA graph replay (``utils/graphs.CapturedStep``).
+is one CUDA graph replay (a one-part ``utils/graphs.StagedStep``).
 """
 
 import collections
@@ -339,14 +339,14 @@ def rollout_batched(carry, model, params, num_steps, dt,
     batch-level GRF routing (``controller.control_step_batched``).
 
     A tick is the sensor half, ``control_step_batched`` and the plant
-    step. On the card it replays them from captured CUDA graphs
-    (:func:`tick_batched_parts`): the sensor half up to the transition
-    count, its host read, a base program up to the flag count, its host
-    read, and one terminal route (two graphs when the transitions alone
-    overflow the compacted sub-batch); the captures are kept by static
+    step, as the parts of :func:`tick_batched_parts`: the sensor half up
+    to the transition count, its host read, a base program up to the flag
+    count, its host read, and one terminal route (two parts when the
+    transitions alone overflow the compacted sub-batch). On the card each
+    part replays a captured CUDA graph; the captures are kept by static
     configuration and shared, so a rollout on the card is not thread-safe
-    (nor reentrant from ``command_fn``). Elsewhere the stages run eagerly.
-    Both give the same bits.
+    (nor reentrant from ``command_fn``). Off the card the parts run
+    plainly (``graphs.compose_stages``).
 
     Args:
       carry: RolloutCarry from :func:`init_carry`.
@@ -361,20 +361,11 @@ def rollout_batched(carry, model, params, num_steps, dt,
     Returns:
       (carry, RolloutTrace) with trace leaves (T, B, ...).
     """
-    if carry.sim.root_pos.is_cuda:
-        config = ("batched", float(dt), settings, estimate,
-                  use_terrain_adapt, warm_settings, robust, compact_k)
-        return _run_captured(carry, model, params, num_steps, command_fn,
-                             ground_coef, stats,
-                             tick_batched_parts(*config[1:]), config)
-    # the same stages run eagerly, through the GRF solve's own entry
-    # point, compute_grf_mpc_batched, which the parts compose to the bit
-    return _run(carry, model, params, num_steps, dt, command_fn, estimate,
-                ground_coef, lambda ctrl: controller.control_step_batched(
-                    ctrl, model, params, float(dt), settings=settings,
-                    use_terrain_adapt=use_terrain_adapt,
-                    warm_settings=warm_settings, robust=robust,
-                    compact_k=compact_k, stats=stats))
+    config = ("batched", float(dt), settings, estimate, use_terrain_adapt,
+              warm_settings, robust, compact_k)
+    return _run_captured(carry, model, params, num_steps, command_fn,
+                         ground_coef, stats, tick_batched_parts(*config[1:]),
+                         config)
 
 
 class RLRolloutCarry(NamedTuple):
@@ -473,14 +464,14 @@ def rl_rollout(carry, model, actor, num_steps, dt, command_fn=None,
             row[:, 3] = np.asarray(toggle_fn(i), bool)
         return torch.as_tensor(row, dtype=dtype).to(device)
 
-    step = graphs.CapturedStep(tick, carry, torch.zeros(
+    step = graphs.StagedStep(graphs.single(tick), carry, torch.zeros(
         (batch, 4), dtype=dtype, device=device))
     records = []
     for i in range(num_steps):
         # the outputs are the graph's buffers, which the next replay
         # overwrites: the carry goes back in as the next inputs (copied
         # before the replay), the trace is copied out
-        carry, trace = step(carry, host_inputs(i))
+        carry, trace = step(carry, host_inputs(i))[1]
         records.append(graphs.clone(trace))
     trace = RLRolloutTrace(*[torch.stack(leaves) for leaves in zip(*records)])
     return graphs.clone(carry), trace

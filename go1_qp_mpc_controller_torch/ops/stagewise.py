@@ -29,7 +29,7 @@ of a pass is one batched multiply-add; with ``parallel_scan=True`` the
 passes are log-depth prefix compositions over the horizon instead
 (:func:`_affine_scan`). On the card the ``seg_iters`` iterations of a
 segment, which launch no counted kernel, replay as one CUDA graph
-(``utils/graphs.CapturedStep``) while the Riccati pass with its K3
+(a one-part ``utils/graphs.StagedStep``) while the Riccati pass with its K3
 launches stays eager; :data:`REPLAY` = False runs them eagerly. A graph is
 captured per schedule and batch bucket: a batch of n scenarios replays
 padded to the next power of two (the iterations are per scenario, the
@@ -55,7 +55,7 @@ NC = P.MPC_CONSTRAINT_DIM     # 20 pyramid rows per stage
 # replay each segment's ADMM iterations as a CUDA graph on the card
 REPLAY = True
 MAX_GRAPHS = 32
-_captured = {}          # key -> CapturedStep, least recently used first
+_captured = {}          # key -> StagedStep, least recently used first
 _bmv = admm._bmv        # (..., n, k) x (..., k) -> (..., n)
 
 
@@ -410,10 +410,10 @@ def _run_iterations(u, z, y, ops, settings, parallel):
     if step is None:
         while len(_captured) >= MAX_GRAPHS:
             del _captured[next(iter(_captured))]
-        step = graphs.CapturedStep(
-            lambda *a: _iterations(*a, *args), u, z, y, ops)
+        step = graphs.StagedStep(
+            graphs.single(lambda *a: _iterations(*a, *args)), u, z, y, ops)
     _captured[key] = step
-    return tuple(t[:n].clone() for t in step(u, z, y, ops))
+    return tuple(t[:n].clone() for t in step(u, z, y, ops)[1])
 
 
 def _amax(a):

@@ -137,9 +137,9 @@ class EstimatorThread:
             frame = self._frame(np.concatenate([[1.0, 0, 0, 0],
                                                 np.zeros(34)]),
                                 sensor_period_s)
-            self._step = graphs.CapturedStep(
-                lambda x, p, f, mode: step(
-                    x, p, *self._split(f), mode, f[0, SENSOR_WIDTH]),
+            self._step = graphs.StagedStep(
+                graphs.single(lambda x, p, f, mode: step(
+                    x, p, *self._split(f), mode, f[0, SENSOR_WIDTH])),
                 self._x, self._P, frame, self._mode(0))
             synchronize(self.device)
 
@@ -161,7 +161,7 @@ class EstimatorThread:
         """(x, P, contact weights) after one frame: the captured frame,
         K4 inside."""
         # the graph's buffers: the next frame overwrites them
-        return graphs.clone(self._step(self._x, self._P, frame, mode))
+        return graphs.clone(self._step(self._x, self._P, frame, mode)[1])
 
     def _mode(self, mode):
         if mode not in self._modes:

@@ -85,11 +85,13 @@ class SimFeeder:
                                         device=self.device)
             # the torque-mode and the position-mode tick, captured as CUDA
             # graphs on the card (here, before any other thread runs)
-            self._tick = graphs.CapturedStep(
-                self._step_and_read, self._sim, self._forces_z,
+            self._tick = graphs.StagedStep(
+                graphs.single(self._step_and_read), self._sim,
+                self._forces_z,
                 torch.zeros((1, 12), dtype=f32, device=self.device))
-            self._pd_tick = graphs.CapturedStep(
-                self._pd_step_and_read, self._sim, self._forces_z,
+            self._pd_tick = graphs.StagedStep(
+                graphs.single(self._pd_step_and_read), self._sim,
+                self._forces_z,
                 torch.zeros((1, 48), dtype=f32, device=self.device))
             self._host = self._read()
         self._root_host = self._host[38:41].copy()
@@ -137,10 +139,10 @@ class SimFeeder:
         if np.any(cmd["kp"] != 0.0):
             self._sim, self._forces_z, frame = self._pd_tick(
                 self._sim, self._forces_z, dev(np.concatenate(
-                    [cmd["tau"], cmd["q"], cmd["kp"], cmd["kd"]])))
+                    [cmd["tau"], cmd["q"], cmd["kp"], cmd["kd"]])))[1]
         else:
             self._sim, self._forces_z, frame = self._tick(
-                self._sim, self._forces_z, dev(cmd["tau"]))
+                self._sim, self._forces_z, dev(cmd["tau"]))[1]
         return frame[0].to("cpu", torch.float64).numpy()
 
     def run(self, num_ticks=None, duration_s=None):

@@ -146,15 +146,6 @@ class ControlLoop:
     # ---- the steps (batch 1; ``params`` is an argument because the
     # joystick path changes kp_linear tick by tick) ----------------------
 
-    def full_step(self, state, sensors, params):
-        """Single-cadence tick: sensor update + the whole controller."""
-        dt = self.main_period
-        state = controller.sensor_update(state, self.model, sensors, dt)
-        return controller.control_step(
-            state, self.model, params, dt, solver_type=self.solver,
-            settings=self.settings,
-            use_terrain_adapt=self.static.use_terrain_adapt)
-
     def fast_step(self, state, sensors, params):
         """Plan + swing + torques against the last solved GRF. With the
         estimator thread on, the sensor update only refreshes kinematics:
@@ -174,15 +165,6 @@ class ControlLoop:
         joy, state, params = command_lib.apply_commands(
             joy, axes, state, params, self.main_period)
         return self.fast_step(state, sensors, params), joy, params
-
-    def grf_step(self, state, params):
-        """The GRF solve on a state snapshot (MPC or the balance QP)."""
-        if self.solver == controller.MPC:
-            return controller.compute_grf_mpc(
-                state, self.model, params, self.settings,
-                self.static.use_terrain_adapt)
-        return controller.compute_grf_qp(state, self.model, params,
-                                         self.settings)
 
     # ---- host side -------------------------------------------------------
 
@@ -211,7 +193,8 @@ class ControlLoop:
                     self.device))
 
     def _grf_parts(self):
-        """:meth:`grf_step` as ``graphs.Stages`` over ``(state, params)``
+        """The GRF solve on a state snapshot (MPC or the balance QP) as
+        ``graphs.Stages`` over ``(state, params)``
         (``controller.grf_parts``); either composition returns the
         ``_GRF_FIELDS`` values in a 1-tuple."""
         return graphs.nest(
@@ -241,15 +224,16 @@ class ControlLoop:
                 joy = command_lib.init_joy_state(
                     1, 0.3, self.state.root_pos.dtype, self.device)
                 ax, btn = self._joy_inputs(np.zeros(8), np.zeros(5))
-                self._fast = graphs.CapturedStep(
-                    self.fast_step_joy, self.state, joy, self.params, ax,
-                    btn, sensors)
+                self._fast = graphs.StagedStep(
+                    graphs.single(self.fast_step_joy), self.state, joy,
+                    self.params, ax, btn, sensors)
                 st = self._fast(self.state, joy, self.params, ax, btn,
-                                sensors)[0]
+                                sensors)[1][0]
             else:
-                self._fast = graphs.CapturedStep(self.fast_step, self.state,
-                                                 sensors, self.params)
-                st = self._fast(self.state, sensors, self.params)
+                self._fast = graphs.StagedStep(graphs.single(self.fast_step),
+                                               self.state, sensors,
+                                               self.params)
+                st = self._fast(self.state, sensors, self.params)[1]
             self._grf = graphs.StagedStep(self._grf_parts(), st,
                                           self.params)
         else:
@@ -270,8 +254,8 @@ class ControlLoop:
 
     def run(self, num_ticks=None, duration_s=None):
         """Blocking main loop, single cadence: plan + solve + send each
-        tick (the fusion of the reference's two threads), :meth:`full_step`
-        as captured by ``warmup(dual=False)``."""
+        tick (the fusion of the reference's two threads),
+        ``replay.replay_parts`` as captured by ``warmup(dual=False)``."""
         if self._full is None:
             raise RuntimeError("ControlLoop.run: call warmup(dual=False) "
                                "first")
@@ -424,12 +408,12 @@ class ControlLoop:
                             ax_t, bt_t = self._joy_inputs(last_axes,
                                                           btn_accum)
                             state, joy, params = graphs.clone(self._fast(
-                                state, joy, params, ax_t, bt_t, sensors))
+                                state, joy, params, ax_t, bt_t, sensors)[1])
                             btn_accum = np.zeros(5, np.int32)
                             flags = joy.exit_request.to(dtype)
                         else:
                             state = graphs.clone(self._fast(state, sensors,
-                                                            params))
+                                                            params)[1])
                             flags = torch.zeros_like(
                                 state.movement_mode, dtype=dtype)
                         # torques, movement mode and the exit request in one

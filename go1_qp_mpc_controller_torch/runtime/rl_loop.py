@@ -16,13 +16,13 @@ estimator's predict step (``runtime/estimator.make_estimator_predict``:
 FK, Jacobian, KF predict up to the innovation matrix), the innovation
 inverse, then the KF correction with ``switch_mode`` and
 ``rl_control_step``. On the card the two halves are CUDA graph replays
-(``utils/graphs.CapturedStep``) and the inverse between them launches
-kernel K4 (``ekf.innovation_inverse(..., "auto")`` on float32 CUDA input,
-``ops/schulz_lanes.py``) once a tick; the wrapper counts it, so it stays
-outside the graphs. The JAX package's unbatched loop takes its plain XLA
-Schulz loop there instead, because its ``custom_vmap`` rule reaches the
-Pallas kernel only under ``vmap``; the port keeps its rule of K4 for every
-float32 CUDA input.
+(one-part ``utils/graphs.StagedStep``s) and the inverse between them
+launches kernel K4 (``ekf.innovation_inverse(..., "auto")`` on float32
+CUDA input, ``ops/schulz_lanes.py``) once a tick; the wrapper counts it,
+so it stays outside the graphs. The JAX package's unbatched loop takes its
+plain XLA Schulz loop there instead, because its ``custom_vmap`` rule
+reaches the Pallas kernel only under ``vmap``; the port keeps its rule of
+K4 for every float32 CUDA input.
 """
 
 import threading
@@ -139,9 +139,9 @@ class RLControlLoop:
     def _step(self, x, p, frame):
         """(x, P, rl_state, (1, 48) command block) after one action tick:
         the two captured halves around the K4 launch."""
-        pred = self._pre(x, p, frame, self.rl_state)
+        pred = self._pre(x, p, frame, self.rl_state)[1]
         s_inv = ekf.innovation_inverse(pred.s_mat, "auto")
-        return self._post(pred, s_inv, self.rl_state, frame)
+        return self._post(pred, s_inv, self.rl_state, frame)[1]
 
     def warmup(self):
         """Capture the tick's two halves (on the card) and make every first
@@ -155,12 +155,12 @@ class RLControlLoop:
                 torch.eye(3, dtype=self._dtype, device=self.device)[None],
                 torch.zeros((1, 4, 3), dtype=self._dtype,
                             device=self.device))
-            self._pre = graphs.CapturedStep(self._pre_fn, x0, p0, frame,
-                                            self.rl_state)
-            pred = self._pre(x0, p0, frame, self.rl_state)
+            self._pre = graphs.StagedStep(graphs.single(self._pre_fn), x0,
+                                          p0, frame, self.rl_state)
+            pred = self._pre(x0, p0, frame, self.rl_state)[1]
             s_inv = ekf.innovation_inverse(pred.s_mat, "auto")
-            self._post = graphs.CapturedStep(self._post_fn, pred, s_inv,
-                                             self.rl_state, frame)
+            self._post = graphs.StagedStep(graphs.single(self._post_fn),
+                                           pred, s_inv, self.rl_state, frame)
             self._step(x0, p0, frame)
             synchronize(self.device)
 

@@ -3,13 +3,14 @@
 At batch 1 a controller step is hundreds of tiny operations, each
 dispatched from Python; the host loop's four threads share one GIL, so
 that dispatch, not the card, sets their speed; a batched tick is ~1,000
-of them. ``CapturedStep`` records such a step once and replays it with
-one call, the port's counterpart of the JAX package's jitted steps;
-``StagedStep`` is the counterpart of a jitted step with ``lax.switch`` /
-``lax.cond`` inside: parts that read each other's outputs, captured in
-one memory pool, and a host rule that reads the device between them and
-picks the parts to replay (:class:`Stages`; :func:`compose_stages` is
-the plain composition that the rule follows on the CPU).
+of them. :class:`StagedStep` records such a step once and replays it with
+one call per part, the counterpart of the JAX package's jitted steps, a
+``lax.switch`` / ``lax.cond`` inside included: parts that read each
+other's outputs, captured in one memory pool, and a host rule that reads
+the device between them and picks the parts to replay (:class:`Stages`;
+:func:`compose_stages` is the plain composition that the rule follows on
+the CPU; :func:`single` makes the one-part, unrouted step of a plain
+function).
 
 A step may launch the counted kernels (``ops/_build.KERNELS``). Capturing
 launches nothing, so the capture's moves of the wrappers' ``launches`` and
@@ -180,6 +181,13 @@ def compose_stages(stages, *args):
     return stages.rule(run)
 
 
+def single(fn):
+    """``fn(*args)`` as one-part, unrouted :class:`Stages`: a step's call
+    returns ``((), fn's outputs)``."""
+    return Stages({"step": (lambda args, mids: fn(*args), ())},
+                  lambda run: ((), run("step")))
+
+
 def _read_keys(parts):
     return {r for _, reads in parts.values() for r in reads}
 
@@ -272,56 +280,13 @@ def _replay(graph, launches, warming=False):
             replays += 1
 
 
-class CapturedStep:
-    """``fn(*args)`` recorded as a CUDA graph and replayed on each call.
-
-    ``args`` are (nested NamedTuples of) tensors of fixed shapes; Python
-    numbers ``fn`` needs are closed over. Each call copies the arguments
-    into the graph's input buffers (:func:`copy_all`) and replays on
-    the calling thread's current stream. The outputs are the graph's own
-    buffers, overwritten by the next call: the caller copies what it keeps.
-    An output that would share memory with an input buffer is copied
-    inside the graph, so that the outputs can go back in as the next
-    call's arguments. Each replay adds the step's kernel launches to the
-    wrappers' counters.
-    Capture the step before other threads issue work on the card; a
-    capture that fails raises. On the CPU (no graphs) a call is
-    ``fn(*args)``.
-    """
-
-    def __init__(self, fn, *example_args, warmup=2):
-        self.fn = fn
-        self.graph = None
-        self.launches = {}
-        flat, self._shape = flatten(example_args)
-        device = flat[0].device
-        if device.type != "cuda":
-            return
-        self._inputs = [t.clone() for t in flat]
-        args = _rebuild(example_args, iter(self._inputs))
-        self.graph, self._outputs, self.launches = _capture(
-            lambda: fn(*args), device, _storages(self._inputs), warmup)
-
-    def __call__(self, *args):
-        if self.graph is None:
-            return self.fn(*args)
-        return self._run(args)
-
-    def _run(self, args, warming=False):
-        """Copy ``args`` in and replay."""
-        flat, shape = flatten(args)
-        if shape != self._shape:
-            raise ValueError("CapturedStep: the arguments' structure "
-                             "differs from the captured one")
-        copy_all(self._inputs, flat)
-        _replay(self.graph, self.launches, warming)
-        return self._outputs
-
-
 class StagedStep:
     """:class:`Stages` as captured steps: each call copies its arguments
     into the step's input buffers (:func:`copy_all`), then the rule
-    replays the parts it runs and makes its host reads between them.
+    replays the parts it runs, on the calling thread's current stream,
+    and makes its host reads between them. The arguments are (nested
+    NamedTuples of) tensors of fixed shapes; Python numbers the parts
+    need are closed over.
 
     Every part is captured at construction in the order of ``parts``, on
     the example arguments, reading the output buffers of the parts it
@@ -335,8 +300,9 @@ class StagedStep:
     graphs' buffers, overwritten by the next call: the caller copies what
     it keeps. An output of a last part that would share memory with an
     input buffer is copied inside its graph, so that the outputs can go
-    back in as the next call's arguments. On the CPU a call is
-    :func:`compose_stages`.
+    back in as the next call's arguments. Capture the step before other
+    threads issue work on the card; a capture that fails raises. On the
+    CPU (no graphs) a call is :func:`compose_stages`.
     """
 
     def __init__(self, stages, *example_args):
@@ -364,8 +330,7 @@ class StagedStep:
         """(the rule's routes, the outputs it returns) for one step on
         ``args``."""
         if self._graphs is None:
-            self._args, self._outs = args, {}
-            return self.stages.rule(self.run)
+            return compose_stages(self.stages, *args)
         flat, shape = flatten(args)
         if shape != self._shape:
             raise ValueError("StagedStep: the arguments' structure differs "
@@ -374,14 +339,9 @@ class StagedStep:
         return self.stages.rule(self.run)
 
     def run(self, key):
-        """Part ``key`` on the last call's arguments and the latest outputs
-        of the parts it reads (on the card a replay); returns its outputs,
-        on the card the graph's buffers."""
-        if self._graphs is None:
-            fn, reads = self.stages.parts[key]
-            self._outs[key] = fn(self._args,
-                                 tuple(self._outs[r] for r in reads))
-            return self._outs[key]
+        """Replay part ``key`` on the last call's arguments and the latest
+        outputs of the parts it reads; returns its outputs, the graph's
+        buffers."""
         graph, outputs, launches = self._graphs[key]
         _replay(graph, launches)
         return outputs

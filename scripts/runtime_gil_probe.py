@@ -4,9 +4,10 @@
 Times each runtime step of one preset alone at batch 1 (the fast step,
 the estimator's frame, the feeder's plant step and read, each eager and,
 on the card, as the runtime replays it from CUDA graphs: p50 wall time,
-the stream synchronized), then the GRF solve, eager
-(``ControlLoop.grf_step``) and as the GRF loop replays it (the routed
-graphs ``ControlLoop.warmup`` captured, its outputs copied), alone and
+the stream synchronized), then the GRF solve, eager (the GRF loop's parts,
+``ControlLoop._grf_parts``, composed plainly) and as the GRF loop replays
+it (the routed graphs ``ControlLoop.warmup`` captured, its outputs
+copied), alone and
 while ``--threads`` background threads each run a loop of tiny device
 operations on streams of their own (standing in for the fast loop, the
 estimator and the feeder), once at Python's default GIL switch interval
@@ -99,7 +100,7 @@ def main(argv=None):
         # the same steps as the runtime runs them: CUDA graph replays (the
         # estimator's with its K4 launch), copies to and from the host
         "fast_graph": lambda: graphs.clone(cl._fast(cl.state, sensors,
-                                                    cl.params)),
+                                                    cl.params)[1]),
         "estimator_graph": lambda: est._update(est._frame(frame, 0.001),
                                                est._mode(0)),
         "feeder_graph": lambda: feeder._advance(zero_cmd)}
@@ -117,7 +118,8 @@ def main(argv=None):
             walls.append((time.perf_counter() - t0) * 1e3)
         out[f"{name}_alone_ms_p50"] = float(np.percentile(walls, 50))
     solves = {
-        "": lambda: cl.grf_step(cl.state, cl.params),
+        "": lambda: graphs.compose_stages(cl._grf_parts(), cl.state,
+                                          cl.params),
         "graph_": lambda: graphs.clone(controller.run_tick(
             cl._grf, (cl.state, cl.params))[0])}
     for tag, solve in solves.items():

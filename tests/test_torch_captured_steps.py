@@ -298,9 +298,9 @@ def _launch(module, route=None, n=1):
 
 @pytest.mark.parametrize("replays", [0, 1, 7])
 def test_capture_bookkeeping_counts_each_replay(replays):
-    """The sequence ``CapturedStep`` runs: warm-up launches stay counted
-    (and are summed apart), the capture's moves are taken back, every
-    replay adds them again."""
+    """The sequence a capture runs (``graphs._capture``): warm-up launches
+    stay counted (and are summed apart), the capture's moves are taken
+    back, every replay adds them again."""
     mods = _stand_ins()
     warm = {}
     before = graphs.snapshot(mods)
@@ -340,8 +340,7 @@ def test_routed_step_on_the_cpu_is_the_plain_composition(a, keys):
     """On the CPU a routed ``StagedStep`` runs pre, reads the route, runs
     the branch on pre's outputs and, where ``recheck`` names a further
     branch and the flag is set, that one (``controller.routed_rule``):
-    ``graphs.compose_stages``'s result; :meth:`run` runs another branch on
-    the same outputs."""
+    ``graphs.compose_stages``'s result."""
     def branch(scale):
         return (lambda args, mids: (mids[0][0][0] * scale,
                                     mids[0][0][0] < -10.0), ("pre",))
@@ -358,7 +357,6 @@ def test_routed_step_on_the_cpu_is_the_plain_composition(a, keys):
     want_keys, want = graphs.compose_stages(stages, *args)
     assert list(got_keys) == list(want_keys) == keys
     assert torch.equal(out[0], want[0])
-    assert torch.equal(step.run("pos")[0], (args[0] + 1.0) * 2.0)
 
 
 # ---- ControlLoop.warmup ----------------------------------------------------
@@ -391,8 +389,12 @@ def test_warmup_builds_a_step_for_every_route(preset, dual):
                     "foot_force": np.full(4, 50.0)})))
         keys, _ = step(*args)
         assert keys == ("cold",)              # the young carry
+        # every route, each part on pre's outputs (on the card the
+        # replays; here their plain composition)
+        parts = step.stages.parts
+        pre = parts["pre"][0](args, ())
         for name in ("warm", "window", "cold", "health"):
-            out = step.run(name)
+            out = parts[name][0](args, (pre,))
             assert all(torch.isfinite(t).all()
                        for t in pytree.tree_leaves(out[0])
                        if t.is_floating_point()), name

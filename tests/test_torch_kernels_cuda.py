@@ -833,7 +833,7 @@ def test_captured_runtime_steps_match_eager(card):
     try:
         fd = feeder.SimFeeder(cl.bridge, model, params, device=card)
         tau = torch.full((1, 12), 0.3, device=card)
-        close(fd._tick(fd._sim, fd._forces_z, tau),
+        close(fd._tick(fd._sim, fd._forces_z, tau)[1],
               fd._step_and_read(fd._sim, fd._forces_z, tau))
 
         cl.state = fd.initial_ctrl_state()
@@ -854,7 +854,7 @@ def test_captured_runtime_steps_match_eager(card):
                 gap * est.period)
             pred = predict(est._x, est._P, *est._split(frame), est._mode(1),
                            gap * est.period)
-            close(est._step(est._x, est._P, frame, est._mode(1)),
+            close(est._step(est._x, est._P, frame, est._mode(1))[1],
                   ekf.correct(pred, ekf.innovation_inverse(pred.s_mat,
                                                            "auto")))
             readings, passed = chip_smoke.k4_check(
@@ -868,7 +868,7 @@ def test_captured_runtime_steps_match_eager(card):
                                    .double().numpy(),
                                    "joint_vel": np.zeros(12),
                                    "foot_force": np.full(4, 50.0)})
-        close(cl._fast(cl.state, sensors, cl.params),
+        close(cl._fast(cl.state, sensors, cl.params)[1],
               cl.fast_step(cl.state, sensors, cl.params))
         parts = cl._grf_parts().parts
         args = (cl.state, cl.params)
@@ -893,14 +893,14 @@ def test_captured_step_counts_replayed_kernel_launches(card):
     m = (torch.eye(28, device=card) * 2.0).expand(2, 28, 28).contiguous()
     schulz_lanes.reset_launches()
     graphs.reset_records()
-    step = graphs.CapturedStep(fn, m)
+    step = graphs.StagedStep(graphs.single(fn), m)
     torch.cuda.synchronize()
     assert schulz_lanes.launches == 2                  # the warm-up runs
     assert graphs.warmup_launches == {"schulz_lanes": (2, {})}
-    assert step.launches == {"schulz_lanes": (1, {})}
+    assert step._graphs["step"][2] == {"schulz_lanes": (1, {})}
     for k in range(3):
         m_k = m * (1.0 + k)
-        assert torch.equal(step(m_k), fn(m_k))
+        assert torch.equal(step(m_k)[1], fn(m_k))
     assert schulz_lanes.launches == 2 + 3 + 3
     assert graphs.replayed_launches == {"schulz_lanes": (3, {})}
 
@@ -1052,12 +1052,12 @@ def test_stagewise_routed_batch_captures_each_bucket_once(card, monkeypatch):
 
     captured = []
 
-    class Counted(graphs.CapturedStep):
-        def __init__(self, fn, u, *rest):
+    class Counted(graphs.StagedStep):
+        def __init__(self, stages, u, *rest):
             captured.append(tuple(u.shape))
-            super().__init__(fn, u, *rest)
+            super().__init__(stages, u, *rest)
 
-    monkeypatch.setattr(stagewise.graphs, "CapturedStep", Counted)
+    monkeypatch.setattr(stagewise.graphs, "StagedStep", Counted)
     monkeypatch.setattr(stagewise, "_captured", {})
     batch, ticks = 200, 8
     got, routes = _mixed_route_ticks(card, batch, 2)
@@ -1122,9 +1122,9 @@ def test_rl_loop_halves_match_eager_and_launch_k4_each_tick(card):
         x, p = loop._init_estimate(sensors)
         frame = loop._frame(sensors, [0.3, 0.0, 0.0], True)
         pred = loop._pre_fn(x, p, frame, loop.rl_state)
-        close(loop._pre(x, p, frame, loop.rl_state), pred)
+        close(loop._pre(x, p, frame, loop.rl_state)[1], pred)
         s_inv = ekf.innovation_inverse(pred.s_mat, "plain")
-        close(loop._post(pred, s_inv, loop.rl_state, frame),
+        close(loop._post(pred, s_inv, loop.rl_state, frame)[1],
               loop._post_fn(pred, s_inv, loop.rl_state, frame))
         schulz_lanes.reset_launches()
         for k in range(5):

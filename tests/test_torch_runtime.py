@@ -5,10 +5,12 @@ package's runtime.
 - ``estimator.make_estimator_step`` against the JAX one over the 300-frame
   velocity-step sequence of tests/test_estimator_cadence.py:24-49, float64,
   within 1e-9 on x and P; and that test's cadence property on the port.
-- ``ControlLoop``'s full, fast + GRF and joystick steps against the JAX
-  loop's jitted steps, 20 closed-loop ticks on ``hardware_qp`` and
-  ``gazebo_mpc`` (the plant stepped by the JAX torques), float64, within
-  1e-8 x max(1, max|JAX|) on every compared field.
+- ``ControlLoop``'s full, fast + GRF and joystick steps (the full and
+  the GRF step as the loops replay them: their ``graphs.Stages`` composed
+  plainly) against the JAX loop's jitted steps, 20 closed-loop ticks on
+  ``hardware_qp`` and ``gazebo_mpc`` (the plant stepped by the JAX
+  torques), float64, within 1e-8 x max(1, max|JAX|) on every compared
+  field.
 - The threads (feeder, estimator, GRF loop, fast loop) at batch 1 on the
   CPU: the invariants of tests/test_estimator_cadence.py and
   tests/test_dual_loop.py hold at every rung of a time-scale ladder; the
@@ -28,6 +30,7 @@ import torch
 from go1_qp_mpc_controller_torch.compat import convert
 from go1_qp_mpc_controller_torch.config import presets as t_presets
 from go1_qp_mpc_controller_torch.ctrl import controller as t_ctrl
+from go1_qp_mpc_controller_torch.envs import replay as t_replay
 from go1_qp_mpc_controller_torch.envs import srb_sim as t_sim
 from go1_qp_mpc_controller_torch.models import types as t_types
 from go1_qp_mpc_controller_torch.ops import ekf as t_ekf
@@ -35,6 +38,7 @@ from go1_qp_mpc_controller_torch.runtime import bridge as t_bridge
 from go1_qp_mpc_controller_torch.runtime import estimator as t_est
 from go1_qp_mpc_controller_torch.runtime import feeder as t_feeder
 from go1_qp_mpc_controller_torch.runtime import loop as t_loop
+from go1_qp_mpc_controller_torch.utils import graphs
 from go1_qp_mpc_controller_tpu.config import presets as j_presets
 from go1_qp_mpc_controller_tpu.envs import rollout as j_rollout
 from go1_qp_mpc_controller_tpu.envs import srb_sim as j_sim
@@ -157,6 +161,22 @@ def _loops(preset):
     return jcl, tcl, carry
 
 
+def _full_step(cl, state, sensors, params):
+    """The single-cadence tick as ``ControlLoop.run`` replays it
+    (``replay.replay_parts``), composed plainly."""
+    return graphs.compose_stages(
+        t_replay.replay_parts(cl.main_period, cl.solver, cl.settings,
+                              cl.static.use_terrain_adapt),
+        state, cl.model, params, sensors)[1][0]
+
+
+def _grf_step(cl, state, params):
+    """``state`` with the GRF solve's ``_GRF_FIELDS`` values as the GRF
+    loop replays it (``ControlLoop._grf_parts``), composed plainly."""
+    (solved,) = graphs.compose_stages(cl._grf_parts(), state, params)[1]
+    return state._replace(**dict(zip(cl._GRF_FIELDS, solved)))
+
+
 FIELDS = ("joint_torques", "foot_forces_grf", "root_pos", "root_lin_vel",
           "estimator_x", "estimator_P", "foot_pos_target_last_time",
           "qp_warm_x", "movement_mode", "contacts")
@@ -177,16 +197,14 @@ def test_loop_steps_match_jax_f64(preset, mode):
             ts = t_ctrl.SensorData(*_port_sensors(s))
             if mode == "full":
                 jstate = jcl._step(jstate, s, dt, jcl.params)
-                tstate = tcl.full_step(tstate, ts, tcl.params)
+                tstate = _full_step(tcl, tstate, ts, tcl.params)
             else:
                 jstate = jcl._fast_step(jstate, s, dt, jcl.params)
                 tstate = tcl.fast_step(tstate, ts, tcl.params)
                 jsol = jcl._grf_step(jstate, jcl.params)
-                tsol = tcl.grf_step(tstate, tcl.params)
                 jstate = jstate._replace(**{f: getattr(jsol, f)
                                             for f in jcl._GRF_FIELDS})
-                tstate = tstate._replace(**{f: getattr(tsol, f)
-                                            for f in tcl._GRF_FIELDS})
+                tstate = _grf_step(tcl, tstate, tcl.params)
             for field in FIELDS:
                 _close(getattr(tstate, field)[0].double(),
                        getattr(jstate, field), 1e-8, f"{field}, tick {tick}")
@@ -228,11 +246,9 @@ def test_joystick_fast_step_matches_jax_f64():
                 tstate, tjoy, tparams, torch.tensor(ax[None]),
                 torch.tensor(bt[None]), t_ctrl.SensorData(*_port_sensors(s)))
             jsol = jcl._grf_step(jstate, jparams)
-            tsol = tcl.grf_step(tstate, tparams)
             jstate = jstate._replace(**{f: getattr(jsol, f)
                                         for f in jcl._GRF_FIELDS})
-            tstate = tstate._replace(**{f: getattr(tsol, f)
-                                        for f in tcl._GRF_FIELDS})
+            tstate = _grf_step(tcl, tstate, tparams)
             for field in FIELDS + ("root_lin_vel_d", "root_euler_d",
                                    "root_pos_d"):
                 _close(getattr(tstate, field)[0].double(),

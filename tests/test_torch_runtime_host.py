@@ -441,17 +441,20 @@ def test_runtime_imports_no_jax_and_no_yaml():
 
 
 def test_captured_step_runs_eagerly_on_the_cpu():
-    """``CapturedStep`` records a graph only on the card; on the CPU a call
-    is the function itself, on the same nested arguments."""
+    """A one-part ``StagedStep`` (``graphs.single``) records a graph only
+    on the card; on the CPU a call is the function itself, on the same
+    nested arguments, with no routes."""
     from go1_qp_mpc_controller_torch.utils import graphs
 
     def fn(pair, scale):
         return pair[0] * scale + pair[1], pair[1].clone()
 
     args = ((torch.ones(3), torch.arange(3.0)), torch.tensor(2.0))
-    step = graphs.CapturedStep(fn, *args)
-    assert step.graph is None
-    got = step((torch.full((3,), 4.0), torch.zeros(3)), torch.tensor(0.5))
+    step = graphs.StagedStep(graphs.single(fn), *args)
+    assert step._graphs is None
+    routes, got = step((torch.full((3,), 4.0), torch.zeros(3)),
+                       torch.tensor(0.5))
+    assert routes == ()
     assert torch.equal(got[0], torch.full((3,), 2.0))
     copies = graphs.clone(got)
     assert torch.equal(copies[1], got[1]) and copies[1] is not got[1]
